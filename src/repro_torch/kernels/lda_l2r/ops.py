@@ -1,0 +1,73 @@
+"""Wrapper of the lda_l2r CUDA kernel, dispatched by the tensor's device.
+
+A CUDA tensor launches ``csrc/lda_l2r.cu`` (or raises); a CPU tensor
+runs the plain version in ``ref.py``. The per-document keys are derived
+by the caller (``fold_in(key, doc_id)``, outside the kernel, as in the
+reference's ``kernels/lda_l2r/ops.py``) and the ``[L, B]`` scores are
+summed over L by the caller. ``launches`` counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import common
+
+__all__ = ["l2r_scores", "launches", "MAX_TOPICS"]
+
+MAX_TOPICS = 128       # z is kept as uint8 in shared memory
+launches = 0
+
+
+def _launch(kd, beta_w, weights, alpha, n_particles):
+    global launches
+    b, l, k = beta_w.shape
+    if k > MAX_TOPICS:
+        raise ValueError(f"lda_l2r: K={k} > {MAX_TOPICS} topics")
+    if not 1 <= n_particles <= 1024:
+        raise ValueError(f"lda_l2r: n_particles={n_particles} not in "
+                         f"[1, 1024]")
+    smem = (2 * k * n_particles + n_particles) * 4 + l * n_particles
+    if smem > 227 * 1024:
+        raise ValueError(f"lda_l2r: {smem} bytes of shared memory at "
+                         f"L={l}, K={k}, P={n_particles}")
+    if (kd.shape != (b, 2) or weights.shape != (b, l)
+            or beta_w.dtype != torch.float32):
+        raise ValueError("lda_l2r: want kd [B, 2], float32 beta_w "
+                         "[B, L, K], weights [B, L]")
+    kd = kd.to(torch.int64).contiguous()
+    beta_w = beta_w.contiguous()
+    weights = weights.to(torch.float32).contiguous()
+    common.require_cuda("lda_l2r", kd, beta_w, weights)
+    ll = torch.empty((l, b), dtype=torch.float32, device=beta_w.device)
+    if b == 0:
+        return ll
+    lib = common.load("lda_l2r")
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(beta_w.device):
+        err = lib.lda_l2r_scores(
+            ptr(kd.data_ptr()), ptr(beta_w.data_ptr()),
+            ptr(weights.data_ptr()), ptr(ll.data_ptr()), ctypes.c_int(b),
+            ctypes.c_int(l), ctypes.c_int(k), ctypes.c_int(n_particles),
+            ctypes.c_float(alpha), ctypes.c_float(alpha * k),
+            ptr(common.stream_ptr()))
+    common.check(err, "lda_l2r")
+    launches += 1
+    return ll
+
+
+def l2r_scores(kd: torch.Tensor, beta_w: torch.Tensor,
+               weights: torch.Tensor, alpha: float, *,
+               n_particles: int = 10) -> torch.Tensor:
+    """Per-position left-to-right scores ``[L, B]``.
+
+    kd ``[B, 2]`` per-document key words (doc-folded), beta_w
+    ``[B, L, K]`` float32 (K <= 128 on the card), weights ``[B, L]``
+    the 0/1 document mask; any B.
+    """
+    if beta_w.device.type == "cpu":
+        from repro_torch.kernels.lda_l2r.ref import l2r_scores_ref
+        return l2r_scores_ref(kd, beta_w, weights, alpha, n_particles)
+    return _launch(kd, beta_w, weights, float(alpha), int(n_particles))

@@ -1,0 +1,132 @@
+"""Device rules of the port, and its separation from the JAX package.
+
+Entry points run on CUDA unless the caller asks for the CPU, and raise
+without a GPU; the port and ``chip_smoke.py`` import neither ``jax`` nor
+``repro``; the package imports with no ``triton`` and no ``nvcc``. The
+kernels' agreement with their plain versions needs the card and is held
+by ``chip_smoke.py`` and by the last test here, which skips without one.
+"""
+
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+import repro_torch  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
+from repro_torch.launch import serve_topics  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError):
+        repro_torch.resolve_device("cuda")
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        repro_torch.resolve_device("meta")
+
+
+def test_serve_topics_defaults_to_cuda(no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_topics.main(["--requests", "1"])
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    assert path.exists(), path
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_package_imports_without_triton_or_nvcc(monkeypatch):
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    names = [m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch.")]
+    assert "repro_torch.kernels.lda_gibbs.ops" in names
+    for name in names:
+        importlib.import_module(name)
+    import sys
+    assert "triton" not in sys.modules
+    assert not common._LIBS, "no kernel is loaded at import"
+
+
+def test_cuda_tensor_is_never_served_by_plain_code():
+    """A tensor that is not on the CPU goes to the kernel wrapper, which
+    refuses a non-CUDA device instead of falling back."""
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        gibbs_ops.gibbs_sweeps(torch.empty(2, 3, 4, device=meta),
+                               torch.empty(2, 3, device=meta),
+                               torch.empty(5, 2, 3, device=meta),
+                               torch.empty(2, 3, dtype=torch.int64,
+                                           device=meta),
+                               alpha=0.5, n_sweeps=5, burnin=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        l2r_ops.l2r_scores(torch.empty(2, 2, dtype=torch.int64, device=meta),
+                           torch.empty(2, 3, 4, device=meta),
+                           torch.empty(2, 3, device=meta), 0.5,
+                           n_particles=3)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc: the kernels run only on "
+                    "the card")
+    return torch.device("cuda")
+
+
+def test_kernels_match_plain_on_card(cuda_device):
+    from repro_torch.core import estep, evaluation
+    from repro_torch.core import threefry as tf3
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    rng = np.random.default_rng(0)
+    b, l, k, s = 11, 16, 7, 6
+    bw = torch.from_numpy(rng.random((b, l, k), dtype=np.float32) + 1e-3)
+    mask = torch.from_numpy((rng.random((b, l)) < 0.8).astype(np.float32))
+    u = torch.from_numpy(rng.random((s, b, l), dtype=np.float32))
+    z0 = torch.from_numpy(rng.integers(0, k, (b, l)))
+    args = [x.to(cuda_device) for x in (bw, mask, u, z0)]
+    got = gibbs_ops.gibbs_sweeps(*args, alpha=0.5, n_sweeps=s, burnin=3)
+    want = estep.gibbs_sweeps_dense(*args, alpha=0.5, n_sweeps=s, burnin=3)
+    assert torch.equal(got[1], want[1])       # the same draws
+    for g, w in (got[0], want[0]), (got[2], want[2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    kd = tf3.fold_in_data(tf3.key(1, cuda_device),
+                          torch.arange(b, device=cuda_device))
+    got = l2r_ops.l2r_scores(kd, args[0], args[1], 0.5, n_particles=4)
+    want = evaluation.l2r_position_scores(kd, args[0], args[1], 0.5, 4)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

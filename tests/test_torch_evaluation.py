@@ -1,0 +1,138 @@
+"""The port's left-to-right evaluator against the JAX package's.
+
+Same doc ids, keys and likelihood rows on both sides: per-document LLs
+agree at rtol 1e-5 (the resample draws share one association with the
+reference's ``sample_from_unnormalized_seq``; the z_n draw and the sums
+may differ in the last ulp). Within the port, every chunking of
+``evaluate_heldout`` gives the same bits.
+"""
+
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import evaluation as ref_eval  # noqa: E402
+from repro.core import threefry as ref_tf3  # noqa: E402
+from repro_torch.core import evaluation  # noqa: E402
+from repro_torch.kernels.lda_l2r import ops as l2r_ops  # noqa: E402
+from torch_parity import port_key, reference_mode, to_torch  # noqa: E402
+
+ALPHA = 0.5
+
+
+def _inputs(seed, b=8, l=12, k=5, v=40):
+    rng = np.random.default_rng(seed)
+    stats = rng.random((k, v), dtype=np.float32)
+    words = rng.integers(0, v, (b, l)).astype(np.int32)
+    lengths = rng.integers(2, l + 1, b)
+    mask = np.arange(l)[None, :] < lengths[:, None]
+    return stats, words, mask
+
+
+@pytest.mark.parametrize("seed,p", [(0, 4), (1, 3)])
+def test_left_to_right_fused_matches_reference(seed, p):
+    stats, words, mask = _inputs(seed)
+    beta = stats / stats.sum(-1, keepdims=True)
+    beta_w = np.take(beta.T, words, axis=0)
+    doc_ids = np.arange(5, 5 + words.shape[0], dtype=np.int32)
+    key = jax.random.key(seed + 30)
+    with reference_mode():
+        want = np.asarray(ref_eval.left_to_right_fused(
+            key, jnp.asarray(doc_ids), jnp.asarray(beta_w),
+            jnp.asarray(mask), ALPHA, p))
+    got = evaluation.left_to_right_fused(
+        port_key(key), to_torch(doc_ids), to_torch(beta_w),
+        to_torch(mask), ALPHA, p).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_fused_core_matches_reference_core():
+    stats, words, mask = _inputs(2, b=6, l=10, k=4)
+    beta = stats / stats.sum(-1, keepdims=True)
+    beta_w = np.take(beta.T, words, axis=0)
+    key = jax.random.key(8)
+    ids = jnp.arange(6, dtype=jnp.int32)
+    with reference_mode():
+        kd = ref_tf3.key_data(
+            jax.vmap(lambda d: jax.random.fold_in(key, d))(ids))
+        want = np.asarray(ref_eval._l2r_fused_core(
+            kd, jnp.asarray(beta_w), jnp.asarray(mask, jnp.float32), ALPHA,
+            3, count_weighted=False))
+    got = evaluation._l2r_fused_core(
+        to_torch(np.asarray(kd).astype(np.int64)), to_torch(beta_w),
+        to_torch(mask.astype(np.float32)), ALPHA, 3).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_ll_slab_from_stats_matches_reference():
+    stats, words, mask = _inputs(3)
+    key = jax.random.key(4)
+    ids = np.arange(words.shape[0], dtype=np.int32)
+    with reference_mode():
+        want = np.asarray(ref_eval.ll_slab_from_stats(
+            key, jnp.asarray(ids), jnp.asarray(words), jnp.asarray(mask),
+            jnp.asarray(stats), 1e-2, ALPHA, 4))
+    got = evaluation.ll_slab_from_stats(
+        port_key(key), to_torch(ids), to_torch(words), to_torch(mask),
+        to_torch(stats), 1e-2, ALPHA, 4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_evaluate_heldout_chunk_invariant():
+    """Chunks of 1, 7 and B give the same bits, via stats or beta."""
+    stats, words, mask = _inputs(4, b=11, l=9, k=4)
+    key = port_key(jax.random.key(5))
+    args = (key, to_torch(words), to_torch(mask))
+    full = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                       alpha=ALPHA, n_particles=3,
+                                       chunk_docs=11)
+    for c in (1, 7, None):
+        got = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                          alpha=ALPHA, n_particles=3,
+                                          chunk_docs=c)
+        assert torch.equal(got, full), c
+    beta = to_torch(stats) + 1e-2
+    beta = beta / beta.sum(-1, keepdim=True)
+    via_beta = evaluation.evaluate_heldout(*args, beta=beta, alpha=ALPHA,
+                                           n_particles=3, chunk_docs=4)
+    assert torch.equal(via_beta, full)
+
+
+def test_evaluate_heldout_matches_reference():
+    stats, words, mask = _inputs(6, b=9)
+    key = jax.random.key(12)
+    with reference_mode():
+        want = np.asarray(ref_eval.evaluate_heldout(
+            key, jnp.asarray(words), jnp.asarray(mask),
+            stats=jnp.asarray(stats), alpha=ALPHA, n_particles=4,
+            chunk_docs=4))
+    got = evaluation.evaluate_heldout(
+        port_key(key), to_torch(words), to_torch(mask),
+        stats=to_torch(stats), alpha=ALPHA, n_particles=4,
+        chunk_docs=4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,l,p,k", [(10**9, 16, 10, 100), (50, 64, 10, 5),
+                                     (7, 32, 3, 128)])
+def test_auto_chunk_docs_matches_reference(n, l, p, k):
+    assert (evaluation.auto_chunk_docs(n, l, p, k)
+            == ref_eval.auto_chunk_docs(n, l, p, k))
+
+
+def test_l2r_ops_dispatches_cpu_to_plain():
+    stats, words, mask = _inputs(7, b=3, l=6, k=3)
+    beta_w = to_torch(np.take(stats.T, words, axis=0))
+    kd = port_key(jax.random.key(1)).expand(3, 2)
+    before = l2r_ops.launches
+    scores = l2r_ops.l2r_scores(kd, beta_w, to_torch(mask).float(), ALPHA,
+                                n_particles=2)
+    assert l2r_ops.launches == before
+    assert scores.shape == (6, 3)
+    assert torch.equal(scores, evaluation.l2r_position_scores(
+        kd, beta_w, to_torch(mask).float(), ALPHA, 2))
