@@ -7,22 +7,29 @@
    limit (``nvidia-smi --query-gpu=name,power.limit``).
 2. Builds every kernel from ``src/repro_torch/kernels/*/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
-3. Holds each kernel against its plain torch version on the card, at
-   the paper's node shape (K=5, V=1,000, L=32) and at the slice shape
-   (K=100, V=50,000, L=64): ``lda_gibbs`` per_pos, z and ndk_mean (a
-   document may differ only at a counted ulp tie), ``lda_l2r``
-   per-document LL at rtol 1e-5; and the E-step's ``[K, V]`` scatter is
-   the same bits twice.
+3. Holds each kernel against its plain torch version on the card, and
+   times both (median of CUDA-event timings after warm-up), at the
+   paper's node shape (K=5, V=1,000, L=32) and at every shape the main
+   path launches at K=100, V=50,000: ``lda_gibbs`` at the G-OEM E-step
+   (B=256, L=64, 30 sweeps, Poisson(10) lengths) and at each serving
+   bucket's mixture slab (B=64, L=16/32/64, 8 sweeps), ``lda_l2r`` at
+   each bucket's "ll" slab (B=64, P=10), with each bucket's request
+   lengths. ``lda_gibbs`` per_pos, z and ndk_mean may differ only at a
+   counted ulp tie, ``lda_l2r`` per-document LLs agree at rtol 1e-5; the
+   E-step's ``[K, V]`` scatter is the same bits twice.
 4. Runs the main path, ``repro_torch.launch.serve_topics.main``, at
-   K=100, V=50,000, L=64 (G-OEM 20 steps at batch 256, then 2,048
-   requests, a quarter of them mixtures) with the launch counters set to
-   0 just before, and checks that both kernels launched, every "ll" is
-   finite, mixtures sum to 1 and served "ll" answers equal
-   ``evaluate_heldout`` at the bucket length.
-5. Times each kernel (median of CUDA-event timings after warm-up) and
-   its plain version at the main path's shapes, computes the least time
-   the card could take for the same work, and prints one
-   ``{"kernels": [...]}`` line and one line of end-to-end numbers.
+   K=100, V=50,000, L=64 with request lengths uniform in [2, 64] (as
+   ``benchmarks/serve_bench.py`` draws them), twice, the launch counters
+   set to 0 before each and read after: closed loop (G-OEM 20 steps at
+   batch 256, then all 2,048 requests at once, a quarter of them
+   mixtures: the node's capacity), then open loop from the saved
+   statistic at 70% of that capacity (serve_bench's rule) for p50/p99.
+   Checks that both kernels launched in each run, once per G-OEM step
+   and per slab, every "ll" is finite, mixtures sum to 1 and served "ll"
+   answers equal ``evaluate_heldout`` at the bucket length.
+5. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
+   main-path launches have, and every shape under ``per_shape``) and one
+   line of end-to-end numbers.
 6. Prints ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -36,6 +43,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,13 +52,24 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# int32 ops of one threefry-2x32 block: 20 rounds of add, two shifts, or
+# and xor, 17 key-injection adds, 2 xors. They are counted at the float32
+# rate: the peak table has no int32 rate (Hopper issues int32 at half
+# the float32 lanes, so this part of the bound is optimistic by up to 2x)
+CIPHER_OPS = 119
 TIE = 1e-6
 SLICE = dict(k=100, v=50_000, l=64)
 NODE = dict(k=5, v=1_000, l=32)
+TRAIN_STEPS, TRAIN_BATCH = 20, 256
+TRAIN_SWEEPS, TRAIN_BURNIN = 30, 15    # the LDAConfig serve_topics builds
+MIX_SWEEPS, MIX_BURNIN = 8, 4          # TopicServer's mixture sweeps
+PARTICLES = 10
+LOAD = 0.7                             # open-loop share of capacity
 SERVE_ARGS = ["--topics", "100", "--vocab", "50000", "--doc-len", "64",
-              "--train-steps", "20", "--train-batch", "256",
-              "--requests", "2048", "--mixture-frac", "0.25",
-              "--rate", "500", "--device", "cuda"]
+              "--train-steps", str(TRAIN_STEPS),
+              "--train-batch", str(TRAIN_BATCH), "--requests", "2048",
+              "--mixture-frac", "0.25", "--particles", str(PARTICLES),
+              "--request-len", "uniform", "--device", "cuda"]
 GIBBS_SRC = "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu"
 L2R_SRC = "src/repro_torch/kernels/lda_l2r/csrc/lda_l2r.cu"
 GIBBS_TPU = "src/repro/kernels/lda_gibbs/lda_gibbs.py:47"
@@ -64,14 +83,26 @@ def _smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _inputs(rt, dev, b, k, v, l, s, seed):
-    """Likelihood rows from a random statistic, Poisson-length masks."""
+def _inputs(rt, dev, case, k, v, seed):
+    """Likelihood rows of random words under a random statistic.
+
+    Lengths follow ``case["lengths"]``: ("poisson", lo, hi) is Poisson(10)
+    clipped to [lo, hi] (the training corpus), ("uniform", lo, hi) uniform
+    in [lo, hi] (the requests a bucket admits); ``full_first`` makes the
+    first document ``hi`` long.
+    """
+    b, l, s = case["b"], case["l"], case.get("s", 1)
+    kind, lo, hi = case["lengths"]
     g = torch.Generator(device=dev).manual_seed(seed)
     stats = torch.rand((k, v), generator=g, device=dev)
     words = torch.randint(0, v, (b, l), generator=g, device=dev)
-    lengths = torch.clamp(torch.poisson(torch.full((b,), 10.0, device=dev),
-                                        generator=g), 2, l)
-    lengths[0] = l
+    if kind == "poisson":
+        lengths = torch.clamp(torch.poisson(
+            torch.full((b,), 10.0, device=dev), generator=g), lo, hi)
+    else:
+        lengths = torch.randint(lo, hi + 1, (b,), generator=g, device=dev)
+    if case.get("full_first"):
+        lengths[0] = hi
     mask = torch.arange(l, device=dev)[None, :] < lengths[:, None]
     beta_w = rt.estep.beta_w_from_stats(stats, words, 1e-2)
     uniforms = torch.rand((s, b, l), generator=g, device=dev)
@@ -79,52 +110,8 @@ def _inputs(rt, dev, b, k, v, l, s, seed):
     return words, beta_w, mask.float(), uniforms, z0
 
 
-def _check_gibbs(rt, dev, shape, b, s, burnin, seed):
-    _w, beta_w, maskf, uniforms, z0 = _inputs(rt, dev, b, shape["k"],
-                                              shape["v"], shape["l"], s, seed)
-    kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
-    got = rt.gibbs_ops.gibbs_sweeps(beta_w, maskf, uniforms, z0, **kw)
-    torch.cuda.synchronize()
-    want = rt.estep.gibbs_sweeps_dense(beta_w, maskf, uniforms, z0, **kw)
-    bad = torch.zeros(b, dtype=torch.bool, device=dev)
-    for g, w in zip(got, want):
-        close = torch.isclose(g.double(), w.double(), rtol=1e-5, atol=1e-6)
-        bad |= ~close.reshape(b, -1).all(-1)
-    flips = int(bad.sum())
-    draws = int(maskf.sum()) * s
-    if flips:
-        margins = rt.estep.gibbs_tie_margins(
-            beta_w[bad], maskf[bad], uniforms[:, bad], z0[bad], alpha=0.5,
-            n_sweeps=s)
-        if flips * 10_000 > draws or bool((margins > TIE).any()):
-            raise AssertionError(
-                f"lda_gibbs disagrees with its plain version beyond ties at "
-                f"{shape}: {flips} documents, margins {margins.tolist()}")
-    err = max(float((g.double() - w.double())[~bad].abs().max())
-              for g, w in zip(got, want))
-    print(f"lda_gibbs vs plain at K={shape['k']} L={shape['l']} B={b} "
-          f"S={s}: max_abs_err {err:.3g}, tie flips {flips} in {draws} "
-          f"draws", flush=True)
-    return err
-
-
-def _check_l2r(rt, dev, shape, b, p, seed):
-    _w, beta_w, maskf, _u, _z = _inputs(rt, dev, b, shape["k"], shape["v"],
-                                        shape["l"], 1, seed)
-    kd = rt.tf3.fold_in_data(rt.tf3.key(seed, dev),
-                             torch.arange(b, device=dev))
-    got = rt.evaluation._sum_positions(
-        rt.l2r_ops.l2r_scores(kd, beta_w, maskf, 0.5, n_particles=p))
-    torch.cuda.synchronize()
-    want = rt.evaluation._l2r_fused_core(kd, beta_w, maskf, 0.5, p)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    err = float((got - want).abs().max())
-    print(f"lda_l2r vs plain at K={shape['k']} L={shape['l']} B={b} P={p}: "
-          f"max_abs_err {err:.3g}", flush=True)
-    return err
-
-
-def _time_ms(fn, reps: int, warmup: int = 1) -> float:
+def _time_ms(fn, reps: int, warmup: int = 1):
+    """Median CUDA-event milliseconds of ``fn`` and its last output."""
     for _ in range(warmup):
         fn()
     times = []
@@ -132,11 +119,11 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
 def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -145,52 +132,125 @@ def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _measure(rt, dev, launches, errs):
-    """Kernel and plain times at the main path's shapes, and bounds."""
-    k, l = SLICE["k"], SLICE["l"]
-    # lda_gibbs at the G-OEM E-step's shape: 256 documents, 30 sweeps
-    b, s, burnin = 256, 30, 15
-    _w, bw, mf, u, z0 = _inputs(rt, dev, b, k, SLICE["v"], l, s, 11)
+def _gibbs_bound(b, l, k, s, burnin, active):
+    """Bytes and operations the sweeps need for ``active`` tokens.
+
+    Reads beta_w rows and uniforms of active positions only (a masked
+    position is skipped), the mask and z0 in full; writes per_pos, z and
+    ndk_mean in full. Per active draw: probs (2K), total (K), running sum
+    and compare (2K); kept sweeps add the Rao-Blackwell divide, multiply
+    and add (3K); the final scaling of per_pos 2K per active position,
+    the kept n_dk sums K per document and kept sweep.
+    """
+    n_keep = s - burnin
+    bytes_moved = 4 * (active * k + s * active + 2 * b * l     # in
+                       + b * l * k + b * l + b * k)            # out
+    ops = (active * (s * 5 * k + n_keep * 3 * k + 2 * k)
+           + b * k * (n_keep + 1))
+    return _bound(bytes_moved, ops)
+
+
+def _l2r_bound(b, l, k, p, lens):
+    """Bytes and operations the left-to-right estimator needs.
+
+    Reads the two key words per document, beta_w rows of active
+    positions and the mask; writes the [L, B] scores. Per particle: each
+    of the sum(n(n-1)/2) resample steps is probs (2K), total (K),
+    running sum and compare (2K) and one cipher; each active position
+    scores (5K) and draws z_n (5K, one cipher). Per document and active
+    position: fold_in and split (3 ciphers), the particle mean and log.
+    """
+    active = float(lens.sum())
+    steps = float((lens * (lens - 1) / 2).sum())
+    bytes_moved = 8 * b + 4 * (active * k + b * l + l * b)
+    ops = (p * (steps * (5 * k + CIPHER_OPS) + active * (10 * k + CIPHER_OPS))
+           + active * (3 * CIPHER_OPS + p + 1))
+    return _bound(bytes_moved, ops)
+
+
+def _hold_gibbs(rt, dev, case, k, v, seed):
+    """The kernel against its plain version at one shape, and their times."""
+    b, l, s, burnin = case["b"], case["l"], case["s"], case["burnin"]
+    _w, bw, mf, u, z0 = _inputs(rt, dev, case, k, v, seed)
     kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
-    g_ms = _time_ms(lambda: rt.gibbs_ops.gibbs_sweeps(bw, mf, u, z0, **kw),
-                    reps=7)
-    g_plain = _time_ms(
+    plain_ms, want = _time_ms(
         lambda: rt.estep.gibbs_sweeps_dense(bw, mf, u, z0, **kw), reps=2,
         warmup=0)
-    active = float(mf.sum())
-    g_bytes = 4 * (2 * b * l * k + b * l + s * b * l + 2 * b * l + b * k)
-    # per active draw: probs (2K), total (K), running sum and compare (2K);
-    # kept sweeps add the Rao-Blackwell divide, multiply and add (3K)
-    g_ops = active * (s * 5 * k + (s - burnin) * 3 * k)
-    g_bound, g_by = _bound(g_bytes, g_ops)
-    # lda_l2r at an "ll" slab of the 64 bucket: 64 documents, 10 particles
-    b, p = 64, 10
-    _w, bw, mf, _u, _z = _inputs(rt, dev, b, k, SLICE["v"], l, 1, 12)
-    kd = rt.tf3.fold_in_data(rt.tf3.key(12, dev), torch.arange(b, device=dev))
-    l_ms = _time_ms(lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5,
-                                                  n_particles=p), reps=7)
-    l_plain = _time_ms(
+    ms, got = _time_ms(lambda: rt.gibbs_ops.gibbs_sweeps(bw, mf, u, z0, **kw),
+                       reps=7)
+    bad = torch.zeros(b, dtype=torch.bool, device=dev)
+    for g, w in zip(got, want):
+        close = torch.isclose(g.double(), w.double(), rtol=1e-5, atol=1e-6)
+        bad |= ~close.reshape(b, -1).all(-1)
+    flips = int(bad.sum())
+    active = int(mf.sum())
+    if flips:
+        margins = rt.estep.gibbs_tie_margins(
+            bw[bad], mf[bad], u[:, bad], z0[bad], alpha=0.5, n_sweeps=s)
+        if flips * 10_000 > active * s or bool((margins > TIE).any()):
+            raise AssertionError(
+                f"lda_gibbs disagrees with its plain version beyond ties at "
+                f"K={k} {case}: {flips} documents, margins "
+                f"{margins.tolist()}")
+    err = max(float((g.double() - w.double())[~bad].abs().max())
+              for g, w in zip(got, want))
+    bound, by = _gibbs_bound(b, l, k, s, burnin, active)
+    shape = f"B={b} L={l} K={k} S={s}"
+    print(f"lda_gibbs vs plain at {shape}: max_abs_err {err:.3g}, tie flips "
+          f"{flips} in {active * s} draws; {ms:.3f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by})", flush=True)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, active_tokens=active, max_abs_err=err,
+                tie_flips=flips)
+
+
+def _hold_l2r(rt, dev, case, k, v, seed):
+    """The kernel against its plain version at one shape, and their times."""
+    b, l, p = case["b"], case["l"], case["p"]
+    _w, bw, mf, _u, _z = _inputs(rt, dev, case, k, v, seed)
+    kd = rt.tf3.fold_in_data(rt.tf3.key(seed, dev),
+                             torch.arange(b, device=dev))
+    plain_ms, want = _time_ms(
         lambda: rt.evaluation.l2r_position_scores(kd, bw, mf, 0.5, p),
         reps=2, warmup=0)
+    ms, got = _time_ms(
+        lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p),
+        reps=7)
+    got = rt.evaluation._sum_positions(got)
+    want = rt.evaluation._sum_positions(want)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    err = float((got - want).abs().max())
     lens = mf.sum(-1).double()
-    resample_steps = float((lens * (lens - 1) / 2).sum())
-    cipher_ops = 170      # int ops of one threefry-2x32 block
-    l_ops = p * (resample_steps * (5 * k + cipher_ops)
-                 + b * l * (8 * k + 2 * cipher_ops))
-    l_bytes = 4 * (2 * b + b * l * k + b * l + l * b)
-    l_bound, l_by = _bound(l_bytes, l_ops)
-    return [
-        {"name": "lda_gibbs", "route": "cuda", "source": GIBBS_SRC,
-         "replaces": GIBBS_TPU, "launches": launches["lda_gibbs"],
-         "max_abs_err": errs["lda_gibbs"], "ms": g_ms, "plain_ms": g_plain,
-         "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
-         "shape": f"B=256 L={l} K={k} S={s}"},
-        {"name": "lda_l2r", "route": "cuda", "source": L2R_SRC,
-         "replaces": L2R_TPU, "launches": launches["lda_l2r"],
-         "max_abs_err": errs["lda_l2r"], "ms": l_ms, "plain_ms": l_plain,
-         "bound_ms": l_bound, "bound_by": l_by, "library_ms": None,
-         "shape": f"B=64 L={l} K={k} P={p}"},
-    ]
+    bound, by = _l2r_bound(b, l, k, p, lens)
+    shape = f"B={b} L={l} K={k} P={p}"
+    print(f"lda_l2r vs plain at {shape}: max_abs_err {err:.3g}; {ms:.3f} ms "
+          f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by})",
+          flush=True)
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, active_tokens=int(mf.sum()), max_abs_err=err)
+
+
+def _main_path_cases(rt):
+    """Every kernel shape the main path launches, keyed for its counts.
+
+    ``queue`` is the TopicServer queue a slab shape serves, or "train"
+    for the G-OEM E-step.
+    """
+    k, l = SLICE["k"], SLICE["l"]
+    cases = [("lda_gibbs", dict(queue="train", b=TRAIN_BATCH, l=l,
+                                s=TRAIN_SWEEPS, burnin=TRAIN_BURNIN,
+                                lengths=("poisson", 2, l)))]
+    lo = 2
+    for lb in rt.serving.make_buckets(l, 3):
+        c = min(64, rt.evaluation.auto_chunk_docs(10 ** 9, lb, PARTICLES, k))
+        cases.append(("lda_gibbs", dict(queue=(lb, "mixture"), b=c, l=lb,
+                                        s=MIX_SWEEPS, burnin=MIX_BURNIN,
+                                        lengths=("uniform", lo, lb))))
+        cases.append(("lda_l2r", dict(queue=(lb, "ll"), b=c, l=lb,
+                                      p=PARTICLES,
+                                      lengths=("uniform", lo, lb))))
+        lo = lb + 1
+    return cases
 
 
 def _check_served(rt, summary, dev):
@@ -239,20 +299,89 @@ def _check_served(rt, summary, dev):
           flush=True)
 
 
+def _drive(rt, dev, argv, cases, trained):
+    """One main-path run with the launch counters set to 0 just before.
+
+    Returns its summary and the launches per case (G-OEM steps and slabs
+    per queue), after checking that both kernels launched, once per step
+    and per slab.
+    """
+    rt.gibbs_ops.launches = 0
+    rt.l2r_ops.launches = 0
+    summary = rt.serve_topics.main(argv)
+    torch.cuda.synchronize()
+    launches = {"lda_gibbs": rt.gibbs_ops.launches,
+                "lda_l2r": rt.l2r_ops.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel did not run on the main path: "
+                             f"{launches}")
+    server = summary["server"]
+    per_case = []
+    for name, case in cases:
+        if case["queue"] == "train":
+            per_case.append(TRAIN_STEPS if trained else 0)
+            continue
+        lb = case["queue"][0]
+        if server.slab_docs[lb] != case["b"]:
+            raise AssertionError(f"slab of bucket {lb} holds "
+                                 f"{server.slab_docs[lb]} documents, the "
+                                 f"measured shape {case['b']}")
+        per_case.append(server.slabs_by_queue[case["queue"]])
+    for name in launches:
+        want = sum(n for (nm, _c), n in zip(cases, per_case) if nm == name)
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"steps and slabs say {want}")
+    _check_served(rt, summary, dev)
+    return summary, per_case
+
+
 class _Port:
     """The port's modules, imported once the checkout is on the path."""
 
     def __init__(self):
         sys.path.insert(0, str(ROOT / "src"))
-        from repro_torch.core import estep, evaluation
+        from repro_torch.core import estep, evaluation, serving
         from repro_torch.core import threefry as tf3
         from repro_torch.kernels import common
         from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
         from repro_torch.kernels.lda_l2r import ops as l2r_ops
         from repro_torch.launch import serve_topics
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
+        self.serving = serving
         self.common, self.gibbs_ops, self.l2r_ops = common, gibbs_ops, l2r_ops
         self.serve_topics = serve_topics
+
+
+def _kernel_line(name, route, source, replaces, rows, node_err):
+    """One kernel's entry: totals, the most launched shape, every shape."""
+    top = max(rows, key=lambda r: r["launches"])
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces,
+            "launches": sum(r["launches"] for r in rows),
+            "max_abs_err": max([node_err] + [r["max_abs_err"] for r in rows]),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "shape": top["shape"],
+            "active_tokens": top["active_tokens"], "per_shape": rows}
+
+
+def _e2e(summary, offered):
+    server = summary["server"]
+    lat = {}
+    for r in summary["results"]:
+        lat.setdefault(f"{r.bucket}/{r.kind}", []).append(1e3 * r.latency_s)
+    return {"req_per_s": summary["req_per_s"], "offered_req_per_s": offered,
+            "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+            "requests": len(summary["results"]), "slabs": server.n_slabs,
+            "occupancy": server.mean_occupancy,
+            "slabs_by_queue": {f"{lb}/{kind}": n for (lb, kind), n
+                               in server.slabs_by_queue.items()},
+            "requests_by_queue": {q: len(v) for q, v in lat.items()},
+            "p50_ms_by_queue": {q: float(np.percentile(v, 50))
+                                for q, v in lat.items()},
+            "p99_ms_by_queue": {q: float(np.percentile(v, 99))
+                                for q, v in lat.items()}}
 
 
 def main() -> int:
@@ -278,14 +407,22 @@ def main() -> int:
     print(f"kernels built in {build_s:.1f}s: "
           f"{', '.join(rt.common.KERNEL_NAMES)}", flush=True)
 
-    errs = {"lda_gibbs": 0.0, "lda_l2r": 0.0}
-    for shape, seed in ((NODE, 1), (SLICE, 2)):
-        errs["lda_gibbs"] = max(errs["lda_gibbs"], _check_gibbs(
-            rt, dev, shape, b=256 if shape is SLICE else 64, s=30,
-            burnin=15, seed=seed))
-        errs["lda_l2r"] = max(errs["lda_l2r"], _check_l2r(
-            rt, dev, shape, b=64, p=10, seed=seed))
-    words, _bw, mf, _u, _z = _inputs(rt, dev, 256, 100, 50_000, 64, 1, 3)
+    # phase 3: every kernel against its plain version, node shape first
+    node_len = ("poisson", 2, NODE["l"])
+    node_err = {
+        "lda_gibbs": _hold_gibbs(rt, dev, dict(
+            b=64, l=NODE["l"], s=TRAIN_SWEEPS, burnin=TRAIN_BURNIN,
+            lengths=node_len, full_first=True), NODE["k"], NODE["v"],
+            1)["max_abs_err"],
+        "lda_l2r": _hold_l2r(rt, dev, dict(
+            b=64, l=NODE["l"], p=PARTICLES, lengths=node_len,
+            full_first=True), NODE["k"], NODE["v"], 1)["max_abs_err"]}
+    cases = _main_path_cases(rt)
+    hold = {"lda_gibbs": _hold_gibbs, "lda_l2r": _hold_l2r}
+    rows = [hold[name](rt, dev, case, SLICE["k"], SLICE["v"], 2 + i)
+            for i, (name, case) in enumerate(cases)]
+    words, _bw, mf, _u, _z = _inputs(rt, dev, dict(
+        b=256, l=64, lengths=("poisson", 2, 64)), 100, 50_000, 3)
     per_pos = torch.rand((256, 64, 100), device=dev)
     first = rt.estep.stats_from_per_pos(words, per_pos, 50_000, mf)
     if not torch.equal(first, rt.estep.stats_from_per_pos(words, per_pos,
@@ -293,27 +430,29 @@ def main() -> int:
         raise AssertionError("the [K, V] scatter is not deterministic")
     torch.cuda.synchronize()
 
-    rt.gibbs_ops.launches = 0
-    rt.l2r_ops.launches = 0
-    summary = rt.serve_topics.main(SERVE_ARGS)
-    torch.cuda.synchronize()
-    launches = {"lda_gibbs": rt.gibbs_ops.launches,
-                "lda_l2r": rt.l2r_ops.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel did not run on the main path: "
-                             f"{launches}")
-    _check_served(rt, summary, dev)
+    # phase 4: the main path, closed loop (capacity), then open loop
+    with tempfile.TemporaryDirectory() as ckpt:
+        closed, n_closed = _drive(
+            rt, dev, SERVE_ARGS + ["--closed-loop", "--save", ckpt], cases,
+            trained=True)
+        rate = LOAD * closed["req_per_s"]
+        opened, n_open = _drive(
+            rt, dev, SERVE_ARGS + ["--rate", repr(rate), "--restore", ckpt],
+            cases, trained=False)
+    for row, a, b in zip(rows, n_closed, n_open):
+        row["launches"] = a + b
 
-    kernels = _measure(rt, dev, launches, errs)
-    print(json.dumps({"kernels": kernels}))
+    lines = []
+    for name, src, tpu in (("lda_gibbs", GIBBS_SRC, GIBBS_TPU),
+                           ("lda_l2r", L2R_SRC, L2R_TPU)):
+        mine = [r for (nm, _c), r in zip(cases, rows) if nm == name]
+        lines.append(_kernel_line(name, "cuda", src, tpu, mine,
+                                  node_err[name]))
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"e2e": {
-        "goem_steps_per_s": summary["train_steps_per_s"],
-        "served_req_per_s": summary["req_per_s"],
-        "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
-        "requests": len(summary["results"]),
-        "slabs": summary["server"].n_slabs,
-        "occupancy": summary["server"].mean_occupancy,
-        "offered_req_per_s": 500.0, "card": card}}))
+        "goem_steps_per_s": closed["train_steps_per_s"],
+        "closed_loop": _e2e(closed, None),
+        "open_loop": _e2e(opened, rate), "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ __all__ = [
     "sample_from_unnormalized_seq", "gibbs_position_update",
     "gibbs_sweeps_dense", "gibbs_tie_margins", "draw_gibbs_randoms", "count_nonempty",
     "stats_from_per_pos", "beta_w_from_stats", "theta_slab", "DenseEStep",
-    "get_estep", "ESTEP_BACKENDS",
+    "get_estep",
 ]
 
 
@@ -283,11 +283,6 @@ class DenseEStep:
                            theta=theta / seq_sum(theta))
 
 
-ESTEP_BACKENDS = ("dense",)
-
-
-def get_estep(name: str = "dense") -> DenseEStep:
-    """The E-step for a corpus layout; only the dense layout is ported."""
-    if name != "dense":
-        raise ValueError(f"unknown E-step {name!r}; the port has: dense")
+def get_estep() -> DenseEStep:
+    """The E-step; only the dense corpus layout is ported."""
     return DenseEStep()

@@ -34,10 +34,7 @@ from repro_torch.core import threefry as tf3
 __all__ = [
     "l2r_position_scores", "left_to_right_fused", "ll_slab_from_beta",
     "ll_slab_from_stats", "auto_chunk_docs", "evaluate_heldout",
-    "EVAL_BACKENDS",
 ]
-
-EVAL_BACKENDS = ("fused",)
 
 
 def _doc_keys(key: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:

@@ -192,18 +192,15 @@ class TopicServer:
     fits it; ``step()`` packs the deepest (bucket, kind) queue into one
     ``[C_b, L_b]`` slab (unfilled rows are empty documents) and runs it;
     ``drain()`` steps until the queue is empty. A request's stream is
-    ``fold_in(key, doc_id)``.
+    ``fold_in(key, doc_id)``. ``slabs_by_queue[(L_b, kind)]`` counts the
+    slabs dispatched from each queue.
     """
 
     def __init__(self, state: ServingState, *, alpha: float,
                  key: torch.Tensor, doc_len_max: int,
                  n_particles: int = 10, n_buckets: int = 3,
                  slab_docs: int | None = None, max_slab_docs: int = 64,
-                 mixture_sweeps: int = 8, mixture_burnin: int = 4,
-                 backend: str = "fused"):
-        if backend not in eval_mod.EVAL_BACKENDS:
-            raise ValueError(f"eval backend must be one of "
-                             f"{eval_mod.EVAL_BACKENDS}, got {backend!r}")
+                 mixture_sweeps: int = 8, mixture_burnin: int = 4):
         if not 0 <= mixture_burnin < mixture_sweeps:
             raise ValueError(
                 f"need 0 <= mixture_burnin < mixture_sweeps, got "
@@ -212,7 +209,6 @@ class TopicServer:
         self.alpha = float(alpha)
         self.key = key.to(state.device)
         self.n_particles = int(n_particles)
-        self.backend = backend
         self.mixture_sweeps = int(mixture_sweeps)
         self.mixture_burnin = int(mixture_burnin)
         self.buckets = make_buckets(doc_len_max, n_buckets)
@@ -230,6 +226,7 @@ class TopicServer:
         }
         self._next_id = 0
         self.n_slabs = 0
+        self.slabs_by_queue = {qk: 0 for qk in self._pending}
         self.n_served = 0
         self._occupancy_sum = 0.0
 
@@ -320,6 +317,7 @@ class TopicServer:
         out = self._run_slab(kind, doc_ids, words, mask).cpu().numpy()
         t_done = time.perf_counter()
         self.n_slabs += 1
+        self.slabs_by_queue[chosen] += 1
         self._occupancy_sum += len(reqs) / c
         self.n_served += len(reqs)
         results = []

@@ -3,9 +3,10 @@
 The torch counterpart of the frozen IID corpus of
 ``repro.data.lda_synthetic``: a ground-truth beta* ~ Dirichlet(0.1)^K,
 ``n_nodes`` shards of ``docs_per_node`` documents with Poisson lengths
-clipped to ``[2, doc_len_max]``, and an IID held-out set. Words are drawn
-per token from the row beta*[z] by inverse CDF, so at V = 50,000 no
-``[L, V]`` logits are built per document.
+clipped to ``[2, doc_len_max]``, and an IID held-out set (Poisson lengths
+too, or uniform in ``[2, doc_len_max]`` with ``test_len_uniform``). Words
+are drawn per token from the row beta*[z] by inverse CDF, so at
+V = 50,000 no ``[L, V]`` logits are built per document.
 
 The reference's gamma and Dirichlet draws cannot be replayed bit for
 bit, so a port corpus is not the reference corpus for the same seed;
@@ -57,6 +58,10 @@ class CorpusSpec:
     n_test: int = 100
     doc_len_poisson: float = 10.0
     topic_concentration: float = 0.1   # Dirichlet conc. of beta* rows
+    # held-out lengths uniform in [2, doc_len_max] instead of Poisson: the
+    # request-length mix of benchmarks/serve_bench.py, which fills every
+    # serving bucket of a long doc_len_max
+    test_len_uniform: bool = False
 
 
 def _lengths(key: torch.Tensor, lam: float, n: int, max_len: int):
@@ -78,8 +83,14 @@ def make_corpus(config: LDAConfig, key: torch.Tensor,
                               config.doc_len_max)
     words, mask = sample_documents(config, generator_from_key(k_doc),
                                    beta_star, lengths)
-    t_lengths, t_trunc = _lengths(k_tlen, spec.doc_len_poisson,
-                                  spec.n_test, config.doc_len_max)
+    if spec.test_len_uniform:
+        t_lengths = torch.randint(2, config.doc_len_max + 1, (spec.n_test,),
+                                  generator=generator_from_key(k_tlen),
+                                  device=key.device)
+        t_trunc = torch.zeros_like(t_lengths, dtype=torch.bool)
+    else:
+        t_lengths, t_trunc = _lengths(k_tlen, spec.doc_len_poisson,
+                                      spec.n_test, config.doc_len_max)
     t_words, t_mask = sample_documents(config, generator_from_key(k_tdoc),
                                        beta_star, t_lengths)
     shape = (spec.n_nodes, spec.docs_per_node, config.doc_len_max)

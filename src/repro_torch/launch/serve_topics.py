@@ -6,12 +6,16 @@ checkpoint (the JAX package's checkpoints restore too), wraps it in the
 staleness-aware :class:`ServingState` cache, and drives a seeded
 open-loop Poisson stream of ``"ll"`` queries (the ``lda_l2r`` kernel)
 and ``"mixture"`` queries (the ``lda_gibbs`` kernel) through the
-continuous-batching :class:`TopicServer`. ``--gossip-every N`` publishes
-a fresh statistic every N slabs mid-serve.
+continuous-batching :class:`TopicServer`. ``--closed-loop`` submits
+every request at once instead, which measures the node's capacity;
+``--request-len uniform`` draws request lengths uniformly in
+``[2, doc-len]`` so that every bucket carries traffic. ``--gossip-every
+N`` publishes a fresh statistic every N slabs mid-serve.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_topics --requests 200
   PYTHONPATH=src python -m repro_torch.launch.serve_topics --topics 100 \
-      --vocab 50000 --doc-len 64 --train-batch 256 --requests 2048
+      --vocab 50000 --doc-len 64 --train-batch 256 --requests 2048 \
+      --request-len uniform --closed-loop
 
 Runs on the GPU; ``--device cpu`` runs the plain torch path instead.
 :func:`main` returns the results and the measured rates as a dict.
@@ -29,7 +33,6 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.core import serving
 from repro_torch.core import threefry as tf3
-from repro_torch.core.evaluation import EVAL_BACKENDS
 from repro_torch.core.lda import LDAConfig, LDAState
 from repro_torch.core.oem import run_oem
 from repro_torch.data.lda_synthetic import CorpusSpec, make_corpus
@@ -92,13 +95,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--rate", type=float, default=200.0,
                     help="Poisson arrival rate (requests/sec)")
+    ap.add_argument("--closed-loop", action="store_true",
+                    help="submit every request at once and drain: the "
+                         "node's capacity in req/s (--rate is unused)")
+    ap.add_argument("--request-len", default="poisson",
+                    choices=("poisson", "uniform"),
+                    help="held-out request lengths: Poisson(10) as the "
+                         "training corpus (paper S4), or uniform in "
+                         "[2, doc-len] as benchmarks/serve_bench.py draws "
+                         "them")
     ap.add_argument("--mixture-frac", type=float, default=0.25,
                     help="fraction of requests asking for topic mixtures")
     ap.add_argument("--particles", type=int, default=10)
     ap.add_argument("--buckets", type=int, default=3)
     ap.add_argument("--slab-docs", type=int, default=None)
-    ap.add_argument("--backend", default="fused",
-                    choices=EVAL_BACKENDS)
+    ap.add_argument("--backend", default="fused", choices=("fused",),
+                    help="the fused evaluator; the serial one is not ported")
     ap.add_argument("--gossip-every", type=int, default=0,
                     help="publish a fresh statistic every N slabs (0 = off)")
     ap.add_argument("--device", default="cuda",
@@ -112,7 +124,9 @@ def main(argv=None) -> dict:
     corpus = make_corpus(config,
                          tf3.fold_in_data(tf3.key(args.seed, device), 7),
                          CorpusSpec(n_nodes=10, docs_per_node=20,
-                                    n_test=max(args.requests, 100)))
+                                    n_test=max(args.requests, 100),
+                                    test_len_uniform=(args.request_len
+                                                      == "uniform")))
     state, train_s = _get_stats(config, args, corpus, device)
 
     sstate = serving.ServingState(state.stats, tau=config.tau,
@@ -120,8 +134,7 @@ def main(argv=None) -> dict:
     server = serving.TopicServer(
         sstate, alpha=config.alpha, key=tf3.key(args.seed + 1, device),
         doc_len_max=config.doc_len_max, n_particles=args.particles,
-        n_buckets=args.buckets, slab_docs=args.slab_docs,
-        backend=args.backend)
+        n_buckets=args.buckets, slab_docs=args.slab_docs)
     print(f"server: buckets={server.buckets} "
           f"slab_docs={server.slab_docs} backend={args.backend} "
           f"device={device}")
@@ -132,6 +145,8 @@ def main(argv=None) -> dict:
     test_words = corpus.test_words.cpu().numpy()
     test_lens = corpus.test_mask.cpu().numpy().sum(-1).astype(int)
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
+    if args.closed_loop:
+        arrivals[:] = 0.0
     kinds = np.where(rng.random(args.requests) < args.mixture_frac,
                      "mixture", "ll")
 
@@ -176,8 +191,9 @@ def main(argv=None) -> dict:
         "p50_ms": 1e3 * _percentile(lat, 50),
         "p99_ms": 1e3 * _percentile(lat, 99),
     }
+    offered = "closed loop" if args.closed_loop else f"{args.rate:.0f}/s"
     print(f"served {len(results)} requests in {wall:.2f}s "
-          f"({summary['req_per_s']:.1f} req/s offered {args.rate:.0f}/s)")
+          f"({summary['req_per_s']:.1f} req/s offered {offered})")
     print(f"latency p50 {summary['p50_ms']:.1f}ms "
           f"p99 {summary['p99_ms']:.1f}ms | "
           f"slabs {server.n_slabs} occupancy {server.mean_occupancy:.2f}")

@@ -206,3 +206,22 @@ def test_serve_topics_main_runs_on_cpu(tmp_path):
                                               "--requests", "10"])
     assert restored["train_steps_per_s"] is None
     assert len(restored["results"]) == 10
+
+
+def test_serve_topics_closed_loop_fills_every_bucket():
+    """Uniform request lengths reach every bucket; the closed loop serves
+    all requests, one slab per count in ``slabs_by_queue``."""
+    argv = ["--device", "cpu", "--topics", "5", "--vocab", "100",
+            "--doc-len", "16", "--train-steps", "2", "--train-batch", "8",
+            "--requests", "24", "--particles", "3", "--request-len",
+            "uniform", "--closed-loop"]
+    out = serve_topics.main(argv)
+    server, results = out["server"], out["results"]
+    assert len(results) == 24
+    assert {r.bucket for r in results} == set(server.buckets) == {4, 8, 16}
+    assert sum(server.slabs_by_queue.values()) == server.n_slabs
+    for (lb, kind), n in server.slabs_by_queue.items():
+        assert n >= -(-sum(r.bucket == lb and r.kind == kind
+                           for r in results) // server.slab_docs[lb])
+    lens = out["corpus"].test_mask.sum(-1)
+    assert int(lens.min()) >= 2 and int(lens.max()) <= 16
