@@ -7,30 +7,59 @@
    limit (``nvidia-smi --query-gpu=name,power.limit``).
 2. Builds every kernel from ``src/repro_torch/kernels/*/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
-3. Holds each kernel against its plain torch version on the card, and
-   times both (median of CUDA-event timings after warm-up), at the
-   paper's node shape (K=5, V=1,000, L=32) and at every shape the main
-   path launches at K=100, V=50,000: ``lda_gibbs`` at the G-OEM E-step
-   (B=256, L=64, 30 sweeps, Poisson(10) lengths) and at each serving
-   bucket's mixture slab (B=64, L=16/32/64, 8 sweeps), ``lda_l2r`` at
-   each bucket's "ll" slab (B=64, P=10), with each bucket's request
-   lengths. ``lda_gibbs`` per_pos, z and ndk_mean may differ only at a
-   counted ulp tie, ``lda_l2r`` per-document LLs agree at rtol 1e-5; the
-   E-step's ``[K, V]`` scatter is the same bits twice.
-4. Runs the main path, ``repro_torch.launch.serve_topics.main``, at
-   K=100, V=50,000, L=64 with request lengths uniform in [2, 64] (as
-   ``benchmarks/serve_bench.py`` draws them), twice, the launch counters
-   set to 0 before each and read after: closed loop (G-OEM 20 steps at
-   batch 256, then all 2,048 requests at once, a quarter of them
-   mixtures: the node's capacity), then open loop from the saved
-   statistic at 70% of that capacity (serve_bench's rule) for p50/p99.
-   Checks that both kernels launched in each run, once per G-OEM step
-   and per slab, every "ll" is finite, mixtures sum to 1 and served "ll"
-   answers equal ``evaluate_heldout`` at the bucket length.
+3. Serving (slice 1). Holds ``lda_gibbs`` and ``lda_l2r`` against their
+   plain torch versions, and times both (median of CUDA-event timings
+   after warm-up), at the paper's node shape (K=5, V=1,000, L=32) and at
+   every shape the serving path launches at K=100, V=50,000: the G-OEM
+   E-step (B=256, L=64, 30 sweeps, Poisson(10) lengths), each bucket's
+   mixture slab (B=64, L=16/32/64, 8 sweeps) and "ll" slab (B=64, P=10),
+   with each bucket's request lengths. Then runs
+   ``repro_torch.launch.serve_topics.main`` at K=100, V=50,000, L=64
+   (request lengths uniform in [2, 64], as ``benchmarks/serve_bench.py``
+   draws them) twice, the launch counters set to 0 before each and read
+   after: closed loop (G-OEM 20 steps at batch 256, then 2,048 requests at
+   once, a quarter of them mixtures: the node's capacity), then open loop
+   from the saved statistic at 70% of that capacity for p50/p99. Checks,
+   from the wrappers' counts by shape, that both kernels launched only
+   at held shapes, once per G-OEM step and per slab of each queue, every
+   "ll" is finite, mixtures sum to 1 and served "ll" answers equal
+   ``evaluate_heldout`` at the bucket length.
+4. DELEDA (slice 2, paper §4). Holds every kernel against its plain
+   version at every shape the DELEDA phases launch, with the lengths
+   those shapes receive (Poisson(10) documents): ``gossip_mix`` exactly
+   (max error 0) at [n=50, K=5, V=100] with one pair and at [50, 100,
+   50,000] with 25 pairs and one pair; ``lda_gibbs`` at the fused E-steps
+   (B = 20 G-OEM, 40 async, 1,000 sync; 30 sweeps) and ``lda_l2r`` at the
+   held-out sets (B = 100, and 3 probe nodes x 100 in the loop; P=10),
+   both at the paper's K=5, V=100, L=32 and at K=100, V=50,000, L=64.
+   Then, each with the launch counters set to 0 just before and read just
+   after. The wrappers count launches by shape; every launch must fall on
+   a held shape, and each shape's count must equal the rule (one
+   ``lda_gibbs`` launch per round in which a node updates, one
+   ``gossip_mix`` launch per round with a live pair, the ``lda_l2r``
+   launches of the eval schedule):
+   - the paper's experiment, ``launch.deleda_experiment.run_experiment``
+     at ``PAPER`` (n=50, K=5, V=100, 400 steps, G-OEM and {async, sync} x
+     {complete, WS}): the Fig. 1a/1b trajectories, the share of records
+     inside the eq. (3) envelope, rounds/s per run and claims C1-C3;
+   - full width, ``core.deleda.run_deleda`` at K=100, V=50,000, L=64,
+     n=50, batch 20: 40 rounds of sync matchings on the complete graph
+     and 40 async edge events on WS, held-out LP every 20 rounds (3 probe
+     nodes, 100 documents, P=10). The initial state is built and timed
+     apart; a cold run from it is timed, then a counted run repeats it
+     bit for bit: rounds/s, peak memory and each kernel's share of that
+     run's wall. Then 10 sync rounds from a built state, timed, then
+     again under ``torch.profiler``: the card's idle share over that one
+     window, kernels per round, the entries with the most device time
+     and the host's waits on the card.
+   - a trajectory check at the golden test's shapes (K=3, V=20, L=8,
+     N=8, T=20): the CUDA path against the CPU plain path from the same
+     inputs (steps equal, mass rtol 1e-4, probe rtol 3e-3, LP rtol 1e-5).
 5. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
-   main-path launches have, and every shape under ``per_shape``) and one
-   line of end-to-end numbers.
-6. Prints ``{"ok": true, "device": {...}}`` last.
+   main-path launches have, and every shape under ``per_shape`` with its
+   counted launches), one
+   line of serving numbers and one of DELEDA numbers, each with the card.
+6. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -74,6 +103,15 @@ GIBBS_SRC = "src/repro_torch/kernels/lda_gibbs/csrc/lda_gibbs.cu"
 L2R_SRC = "src/repro_torch/kernels/lda_l2r/csrc/lda_l2r.cu"
 GIBBS_TPU = "src/repro/kernels/lda_gibbs/lda_gibbs.py:47"
 L2R_TPU = "src/repro/kernels/lda_l2r/lda_l2r.py:47"
+MIX_SRC = "src/repro_torch/kernels/gossip_mix/csrc/gossip_mix.cu"
+MIX_TPU = "src/repro/kernels/gossip_mix/gossip_mix.py:26"
+# DELEDA at full width: the serving slice's model (K=100, V=50,000, L=64)
+# on n=50 nodes of 20 documents, batch 20: 1 GB of statistics
+FULL = dict(k=100, v=50_000, l=64, n=50, docs=20, batch=20, rounds=40,
+            every=20, n_test=100, probes=3)
+FULL_RUNS = (("sync", "matching", "complete"),
+             ("async", "edge", "watts_strogatz"))
+GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
 
 
 def _smi(query: str) -> str:
@@ -110,14 +148,24 @@ def _inputs(rt, dev, case, k, v, seed):
     return words, beta_w, mask.float(), uniforms, z0
 
 
-def _time_ms(fn, reps: int, warmup: int = 1):
-    """Median CUDA-event milliseconds of ``fn`` and its last output."""
+def _time_ms(fn, reps: int, warmup: int = 1, device_only: bool = False):
+    """Median CUDA-event milliseconds of ``fn`` and its last output.
+
+    ``device_only`` (a kernel's one launch): the card first spins for
+    about 2.5 ms (``torch.cuda._sleep``) while the host enqueues the start
+    event, the wrapper's launch and the stop event, so the interval is the
+    kernel's device time without the wrapper's host work (argument checks
+    and the ctypes call, tens of microseconds). A plain version, thousands
+    of launches issued by the host, is timed as it runs.
+    """
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(5_000_000)
         start.record()
         out = fn()
         stop.record()
@@ -177,7 +225,7 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
         lambda: rt.estep.gibbs_sweeps_dense(bw, mf, u, z0, **kw), reps=2,
         warmup=0)
     ms, got = _time_ms(lambda: rt.gibbs_ops.gibbs_sweeps(bw, mf, u, z0, **kw),
-                       reps=7)
+                       reps=7, device_only=True)
     bad = torch.zeros(b, dtype=torch.bool, device=dev)
     for g, w in zip(got, want):
         close = torch.isclose(g.double(), w.double(), rtol=1e-5, atol=1e-6)
@@ -198,10 +246,12 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
     shape = f"B={b} L={l} K={k} S={s}"
     print(f"lda_gibbs vs plain at {shape}: max_abs_err {err:.3g}, tie flips "
           f"{flips} in {active * s} draws; {ms:.3f} ms (plain "
-          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by})", flush=True)
-    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, active_tokens=active, max_abs_err=err,
-                tie_flips=flips)
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
+          flush=True)
+    return dict(name="lda_gibbs", key=(b, l, k, s), shape=shape, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                active_tokens=active, max_abs_err=err, tie_flips=flips,
+                launches=0)
 
 
 def _hold_l2r(rt, dev, case, k, v, seed):
@@ -215,7 +265,7 @@ def _hold_l2r(rt, dev, case, k, v, seed):
         reps=2, warmup=0)
     ms, got = _time_ms(
         lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p),
-        reps=7)
+        reps=7, device_only=True)
     got = rt.evaluation._sum_positions(got)
     want = rt.evaluation._sum_positions(want)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
@@ -224,10 +274,11 @@ def _hold_l2r(rt, dev, case, k, v, seed):
     bound, by = _l2r_bound(b, l, k, p, lens)
     shape = f"B={b} L={l} K={k} P={p}"
     print(f"lda_l2r vs plain at {shape}: max_abs_err {err:.3g}; {ms:.3f} ms "
-          f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by})",
-          flush=True)
-    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, active_tokens=int(mf.sum()), max_abs_err=err)
+          f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | "
+          f"{rt.card}", flush=True)
+    return dict(name="lda_l2r", key=(b, l, k, p), shape=shape, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                active_tokens=int(mf.sum()), max_abs_err=err, launches=0)
 
 
 def _main_path_cases(rt):
@@ -299,41 +350,65 @@ def _check_served(rt, summary, dev):
           flush=True)
 
 
-def _drive(rt, dev, argv, cases, trained):
+def _tally(rt, rows, where):
+    """Adds one run's launches, as the wrappers counted them by shape, to
+    the held rows of that shape; fails on a launch at a shape no row
+    holds. Returns this run's launches per row phase."""
+    by_key = {(r["name"], r["key"]): r for r in rows}
+    if len(by_key) != len(rows):
+        raise AssertionError(f"{where}: two held rows share a shape")
+    got = {}
+    for (name, key), n in rt.by_shape().items():
+        row = by_key.get((name, key))
+        if row is None:
+            raise AssertionError(f"{where}: {name} launched {n} times at "
+                                 f"{key}, a shape no row holds")
+        row["launches"] += n
+        got[row["phase"]] = n
+    return got
+
+
+def _check_phases(where, got, want):
+    """The measured launches per held shape against the rule-derived."""
+    want = {ph: n for ph, n in want.items() if n}
+    if got != want:
+        raise AssertionError(f"{where}: launches by shape {got}, the "
+                             f"rounds and the eval schedule say {want}")
+    print(f"{where}: launches by shape {got}, as the rounds and evals "
+          f"imply", flush=True)
+
+
+def _drive(rt, dev, argv, cases, rows, trained):
     """One main-path run with the launch counters set to 0 just before.
 
-    Returns its summary and the launches per case (G-OEM steps and slabs
-    per queue), after checking that both kernels launched, once per step
-    and per slab.
+    Adds its launches by shape to ``rows`` and checks them against the
+    G-OEM steps and the slabs per queue. Returns its summary.
     """
-    rt.gibbs_ops.launches = 0
-    rt.l2r_ops.launches = 0
+    rt.zero_counts()
     summary = rt.serve_topics.main(argv)
     torch.cuda.synchronize()
-    launches = {"lda_gibbs": rt.gibbs_ops.launches,
-                "lda_l2r": rt.l2r_ops.launches}
+    launches = rt.counts()
+    if launches.pop("gossip_mix") != 0:
+        raise AssertionError("serving launched gossip_mix")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{launches}")
+    got = _tally(rt, rows, "serving")
     server = summary["server"]
-    per_case = []
-    for name, case in cases:
+    want = {}
+    for (_name, case), row in zip(cases, rows):
         if case["queue"] == "train":
-            per_case.append(TRAIN_STEPS if trained else 0)
+            want[row["phase"]] = TRAIN_STEPS if trained else 0
             continue
         lb = case["queue"][0]
         if server.slab_docs[lb] != case["b"]:
             raise AssertionError(f"slab of bucket {lb} holds "
                                  f"{server.slab_docs[lb]} documents, the "
                                  f"measured shape {case['b']}")
-        per_case.append(server.slabs_by_queue[case["queue"]])
-    for name in launches:
-        want = sum(n for (nm, _c), n in zip(cases, per_case) if nm == name)
-        if launches[name] != want:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"steps and slabs say {want}")
+        want[row["phase"]] = server.slabs_by_queue[case["queue"]]
+    _check_phases("serving" + (" (trained)" if trained else ""), got, want)
     _check_served(rt, summary, dev)
-    return summary, per_case
+    return summary
 
 
 class _Port:
@@ -341,16 +416,430 @@ class _Port:
 
     def __init__(self):
         sys.path.insert(0, str(ROOT / "src"))
-        from repro_torch.core import estep, evaluation, serving
+        from repro_torch.core import comm, deleda, estep, evaluation, graph
+        from repro_torch.core import serving
+        from repro_torch.core import lda
         from repro_torch.core import threefry as tf3
+        from repro_torch.data import lda_synthetic
         from repro_torch.kernels import common
+        from repro_torch.kernels.gossip_mix import ops as mix_ops
+        from repro_torch.kernels.gossip_mix import ref as mix_ref
         from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
         from repro_torch.kernels.lda_l2r import ops as l2r_ops
-        from repro_torch.launch import serve_topics
+        from repro_torch.launch import deleda_experiment, serve_topics
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
-        self.serving = serving
+        self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
+                                                           graph, lda)
+        self.data, self.comm = lda_synthetic, comm
         self.common, self.gibbs_ops, self.l2r_ops = common, gibbs_ops, l2r_ops
-        self.serve_topics = serve_topics
+        self.mix_ops, self.mix_ref = mix_ops, mix_ref
+        self.serve_topics, self.experiment = serve_topics, deleda_experiment
+        self.ops = {"gossip_mix": mix_ops, "lda_gibbs": gibbs_ops,
+                    "lda_l2r": l2r_ops}
+
+        self.card = ""        # the card's name and power limit, for prints
+
+    def zero_counts(self) -> None:
+        for op in self.ops.values():
+            op.launches = 0
+            op.launches_by_shape.clear()
+
+    def counts(self) -> dict:
+        return {name: op.launches for name, op in self.ops.items()}
+
+    def by_shape(self) -> dict:
+        return {(name, key): n for name, op in self.ops.items()
+                for key, n in op.launches_by_shape.items()}
+
+
+def _mix_partners(n, pairs, seed):
+    """An involution of n nodes with ``pairs`` random matched pairs."""
+    order = np.random.default_rng(seed).permutation(n)
+    p = np.arange(n)
+    p[order[0:2 * pairs:2]] = order[1:2 * pairs:2]
+    p[order[1:2 * pairs:2]] = order[0:2 * pairs:2]
+    return p
+
+
+def _hold_mix(rt, dev, case, seed):
+    """gossip_mix against its plain version (exact), and their times.
+
+    Bound: two rows read and two written per pair, 4 * pairs * K * V
+    floats at 3.35 TB/s (one add and one multiply per element pair at the
+    float32 rate is far below it).
+    """
+    n, k, v, pairs = case["n"], case["k"], case["v"], case["pairs"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stats = torch.rand((n, k, v), generator=g, device=dev)
+    partners = _mix_partners(n, pairs, seed)
+    plan = rt.mix_ops.pairs_of(partners)
+    plain_ms, want = _time_ms(
+        lambda: rt.mix_ref.mix_matching_ref(stats, partners), reps=5)
+    got = rt.mix_ops.mix_pairs_(stats.clone(), plan)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"gossip_mix differs from its plain version "
+                             f"at {case}: max error {err}")
+    del got, want
+    work = stats.clone()
+    ms, _ = _time_ms(lambda: rt.mix_ops.mix_pairs_(work, plan), reps=20,
+                     warmup=2, device_only=True)
+    bound, by = _bound(4 * pairs * k * v * 4, 2 * pairs * k * v)
+    shape = f"n={n} K={k} V={v} pairs={pairs}"
+    print(f"gossip_mix vs plain at {shape}: max_abs_err {err:.3g}; "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound:.5f} ms by "
+          f"{by}) | {rt.card}", flush=True)
+    return dict(name="gossip_mix", key=(n, k, v, pairs), shape=shape, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, launches=0)
+
+
+def _check_mix_scalar(rt, dev):
+    """The kernel's one-float path (a row not a multiple of 4 floats),
+    which no main-path shape takes: exact against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    stats = torch.rand((20, 5, 51), generator=g, device=dev)
+    partners = _mix_partners(20, 7, 5)
+    want = rt.mix_ref.mix_matching_ref(stats, partners)
+    got = rt.mix_ops.mix_pairs_(stats.clone(), rt.mix_ops.pairs_of(partners))
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"gossip_mix (one-float path) differs from its "
+                             f"plain version: max error {err}")
+    print("gossip_mix one-float path (n=20 K=5 V=51, 7 pairs): equal to "
+          "plain", flush=True)
+    return err
+
+
+def _deleda_cases(rt):
+    """Every kernel shape the DELEDA phases launch, named by the phase
+    that launches it (its launches are the wrappers' counts at its shape,
+    added by ``_tally`` after each run)."""
+    p = rt.experiment.PAPER
+    pk, pv, pl = p.lda.n_topics, p.lda.vocab_size, p.lda.doc_len_max
+    n, b, s = p.corpus.n_nodes, p.batch_size, p.lda.n_gibbs
+    burn, parts = p.lda.n_gibbs_burnin, p.n_particles
+    f = FULL
+    paper_len, full_len = ("poisson", 2, pl), ("poisson", 2, f["l"])
+    return [
+        ("gossip_mix", "paper_mix", dict(n=n, k=pk, v=pv, pairs=1)),
+        ("gossip_mix", "full_sync_mix", dict(n=f["n"], k=f["k"], v=f["v"],
+                                             pairs=f["n"] // 2)),
+        ("gossip_mix", "full_async_mix", dict(n=f["n"], k=f["k"], v=f["v"],
+                                              pairs=1)),
+        ("lda_gibbs", "paper_goem", dict(b=b, l=pl, s=s, burnin=burn,
+                                         lengths=paper_len, k=pk, v=pv)),
+        ("lda_gibbs", "paper_sync", dict(b=n * b, l=pl, s=s, burnin=burn,
+                                         lengths=paper_len, k=pk, v=pv)),
+        ("lda_gibbs", "paper_async", dict(b=2 * b, l=pl, s=s, burnin=burn,
+                                          lengths=paper_len, k=pk, v=pv)),
+        ("lda_gibbs", "full_sync", dict(b=f["n"] * f["batch"], l=f["l"],
+                                        s=30, burnin=15, lengths=full_len,
+                                        k=f["k"], v=f["v"])),
+        ("lda_gibbs", "full_async", dict(b=2 * f["batch"], l=f["l"], s=30,
+                                         burnin=15, lengths=full_len,
+                                         k=f["k"], v=f["v"])),
+        ("lda_l2r", "paper_eval", dict(b=p.corpus.n_test, l=pl, p=parts,
+                                       lengths=paper_len, k=pk, v=pv)),
+        ("lda_l2r", "paper_inloop", dict(b=p.probe_nodes * p.corpus.n_test,
+                                         l=pl, p=parts, lengths=paper_len,
+                                         k=pk, v=pv)),
+        ("lda_l2r", "full_inloop", dict(b=f["probes"] * f["n_test"],
+                                        l=f["l"], p=10, lengths=full_len,
+                                        k=f["k"], v=f["v"])),
+    ]
+
+
+def _hold_deleda(rt, dev, cases):
+    rows = []
+    for i, (name, phase, case) in enumerate(cases):
+        if name == "gossip_mix":
+            row = _hold_mix(rt, dev, case, 20 + i)
+        elif name == "lda_gibbs":
+            row = _hold_gibbs(rt, dev, case, case["k"], case["v"], 20 + i)
+        else:
+            row = _hold_l2r(rt, dev, case, case["k"], case["v"], 20 + i)
+        row["phase"] = phase
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _expected(mode, sched, eval_every):
+    """Launches a run must make: lda_gibbs once per round in which a node
+    updates, gossip_mix once per round with a live pair, lda_l2r once per
+    in-loop evaluation (all probe nodes in one launch)."""
+    data = sched.data
+    if sched.kind == "edge":
+        live = data[:, 0] != data[:, 1]
+    else:
+        live = (data != np.arange(sched.n_nodes)).any(1)
+    n_live = int(live.sum())
+    return {"gossip_mix": n_live,
+            "lda_gibbs": sched.n_rounds if mode == "sync" else n_live,
+            "lda_l2r": sched.n_rounds // eval_every if eval_every else 0}
+
+
+def _drive_paper(rt, dev, rows):
+    """The §4 experiment through its entry point, counters zeroed; its
+    launches by shape go to ``rows`` and are checked against the rules."""
+    p = rt.experiment.PAPER
+    n, graph = p.corpus.n_nodes, rt.graph
+    rt.zero_counts()
+    res = rt.experiment.run_experiment(p, seed=0, device=dev)
+    torch.cuda.synchronize()
+    got = _tally(rt, rows, "paper")
+    n_rec = p.n_steps // p.record_every
+    want = {"paper_goem": p.n_steps, "paper_eval": 1 + n_rec,
+            "paper_sync": 0, "paper_async": 0, "paper_mix": 0,
+            "paper_inloop": 0}
+    graphs = {"complete": graph.complete_graph(n),
+              "watts_strogatz": graph.watts_strogatz_graph(n, p.ws_k, 0.3,
+                                                           seed=0)}
+    for gobj in graphs.values():
+        sched, _degs = rt.deleda.make_run_inputs(gobj, p.n_steps, seed=0)
+        for mode in ("async", "sync"):
+            e = _expected(mode, sched, p.record_every)
+            want[f"paper_{mode}"] += e["lda_gibbs"]
+            want["paper_mix"] += e["gossip_mix"]
+            want["paper_inloop"] += e["lda_l2r"]
+    _check_phases("paper", got, want)
+    res["claims"] = rt.experiment.claims(res)
+    rt.experiment.print_report(res)
+    for name, run in res["runs"].items():
+        vals = run["rel_perplexity"] + run["beta_distance"]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"paper run {name}: a metric is not finite")
+    print(f"(paper scale on {rt.card})", flush=True)
+    summary = {k: res[k] for k in ("lp_star", "lambda2", "iterations",
+                                   "claims")}
+    summary["runs"] = {
+        name: {k: run[k] for k in ("rel_perplexity", "beta_distance",
+                                   "rounds_per_s", "wall_sec",
+                                   "within_envelope_frac") if k in run}
+        for name, run in res["runs"].items()}
+    summary["launches"] = rt.counts()
+    return summary
+
+
+def _full_width_inputs(rt, dev):
+    """The full-width model and its node-sharded corpus, on the card."""
+    f = FULL
+    cfg_lda = rt.lda.LDAConfig(n_topics=f["k"], vocab_size=f["v"],
+                               alpha=0.5, doc_len_max=f["l"], n_gibbs=30,
+                               n_gibbs_burnin=15)
+    corpus = rt.data.make_corpus(
+        cfg_lda, rt.tf3.key(0, dev),
+        rt.data.CorpusSpec(n_nodes=f["n"], docs_per_node=f["docs"],
+                           n_test=f["n_test"]))
+    return cfg_lda, corpus
+
+
+def _seconds(fn):
+    """Wall seconds of ``fn`` with the card drained on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _drive_full(rt, dev, rows):
+    """run_deleda at K=100, V=50,000 for each (mode, kind, graph).
+
+    The initial state is built and timed on its own. Each run starts from
+    it twice: the first (cold) run is timed but not counted; the second,
+    with the counters zeroed, gives the launches, rounds/s, peak memory
+    and kernel shares, and must repeat the first bit for bit.
+    """
+    f = FULL
+    cfg_lda, corpus = _full_width_inputs(rt, dev)
+    spec = rt.evaluation.EvalSpec(words=corpus.test_words,
+                                  mask=corpus.test_mask,
+                                  key=rt.tf3.key(1, dev), n_particles=10,
+                                  probe_nodes=f["probes"])
+    out = {}
+    for mode, kind, gname in FULL_RUNS:
+        gobj = (rt.graph.complete_graph(f["n"]) if gname == "complete"
+                else rt.graph.watts_strogatz_graph(f["n"], 4, 0.3, seed=0))
+        sched, degs = rt.deleda.make_run_inputs(gobj, f["rounds"], seed=0,
+                                                kind=kind)
+        if kind == "matching" and not (
+                (sched.data != np.arange(f["n"])).sum(1) == f["n"]).all():
+            raise AssertionError("a matching of the complete graph is not "
+                                 "perfect: the held shape is wrong")
+        cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode=mode,
+                                     batch_size=f["batch"],
+                                     eval_every=f["every"])
+        tag = f"full_{mode}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_s, state = _seconds(
+            lambda: rt.deleda.init_state(cfg, rt.tf3.key(3, dev), f["n"]))
+        init_peak = torch.cuda.max_memory_allocated()
+
+        def run():
+            return rt.deleda.run_deleda(cfg, state.key, corpus.words,
+                                        corpus.mask, sched, degs,
+                                        f["rounds"], record_every=f["every"],
+                                        eval_spec=spec, init=state)
+
+        cold_wall, cold = _seconds(run)
+        cold_stats, cold_lp = cold.stats.cpu(), cold.eval_lp.cpu()
+        del cold
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rt.zero_counts()
+        wall, trace = _seconds(run)
+        peak = torch.cuda.max_memory_allocated()
+        where = f"full width {mode} {kind} {gname}"
+        got = _tally(rt, rows, where)
+        e = _expected(mode, sched, f["every"])
+        _check_phases(where, got, {f"{tag}_mix": e["gossip_mix"],
+                                   tag: e["lda_gibbs"],
+                                   "full_inloop": e["lda_l2r"]})
+        lp = trace.eval_lp
+        if (lp.shape != (f["rounds"] // f["every"], f["probes"])
+                or not bool(torch.isfinite(lp).all())
+                or not bool(torch.isfinite(trace.stats).all())):
+            raise AssertionError(f"{where}: non-finite or misshapen "
+                                 f"output, eval_lp {lp}")
+        if not (torch.equal(trace.stats.cpu(), cold_stats)
+                and torch.equal(lp.cpu(), cold_lp)):
+            raise AssertionError(f"{where}: two runs from one state differ")
+        del cold_stats, cold_lp
+        kernel_ms = {name: sum(got.get(r["phase"], 0) * r["ms"]
+                               for r in rows if r["name"] == name)
+                     for name in rt.ops}
+        run_out = {"mode": mode, "kind": kind, "graph": gname,
+                   "rounds": f["rounds"], "init_s": init_s,
+                   "init_peak_mem_gb": init_peak / 1e9,
+                   "cold_wall_s": cold_wall, "wall_s": wall,
+                   "rounds_per_s": f["rounds"] / wall,
+                   "peak_mem_gb": peak / 1e9, "launches": rt.counts(),
+                   "kernel_share_of_wall": {k: v / 1e3 / wall
+                                            for k, v in kernel_ms.items()},
+                   "eval_lp": lp.tolist(),
+                   "consensus": trace.consensus.tolist()}
+        out[f"{mode}_{kind}_{gname}"] = run_out
+        print(f"{where}: init {init_s:.3f} s, cold run {cold_wall:.3f} s, "
+              f"run {wall:.3f} s = {run_out['rounds_per_s']:.2f} rounds/s "
+              f"(from the built state, repeated bit for bit), peak "
+              f"{run_out['peak_mem_gb']:.2f} GB, kernel share "
+              f"{run_out['kernel_share_of_wall']} | {rt.card}", flush=True)
+        del trace, state
+    return out
+
+
+def _profile_rounds(rt, dev, rounds=10):
+    """``torch.profiler`` over ``rounds`` full-width sync rounds
+    (``train_steps`` from a built state, after one warm segment). The
+    same segment is first timed without the profiler, so the card's idle
+    share is its device time over that wall, one window on both sides.
+    Also kernels per round, the entries with the most device time and
+    the host's waits on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    f = FULL
+    cfg_lda, corpus = _full_width_inputs(rt, dev)
+    cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode="sync",
+                                 batch_size=f["batch"])
+    sched, _degs = rt.deleda.make_run_inputs(
+        rt.graph.complete_graph(f["n"]), 2 * rounds, seed=1,
+        kind="matching")
+    warm, window = (rt.comm.GossipSchedule(sched.kind, part, f["n"])
+                    for part in (sched.data[:rounds], sched.data[rounds:]))
+    state = rt.deleda.init_state(cfg, rt.tf3.key(3, dev), f["n"])
+    corr = torch.ones((rounds, f["n"]), device=dev)
+
+    def segment(sched_part, start):
+        return rt.deleda.train_steps(cfg, start, corpus.words, corpus.mask,
+                                     sched_part, corr, record_every=rounds)
+
+    state, _ = segment(warm, state)
+    plain_wall, _ = _seconds(lambda: segment(window, state))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _seconds(lambda: segment(window, state))
+    events = prof.key_averages()
+    on_dev = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    waits = {e.key: e.count for e in events
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpy", "cudaMemcpyAsync",
+                          "cudaEventSynchronize")}
+    out = {"rounds": rounds,
+           "wall_ms_per_round": 1e3 * plain_wall / rounds,
+           "profiled_wall_ms_per_round": 1e3 * wall / rounds,
+           "device_busy_ms_per_round": busy_ms / rounds,
+           "device_idle_share": 1.0 - busy_ms / (1e3 * plain_wall),
+           "device_entries_per_round": sum(e.count for e in on_dev) / rounds,
+           "top_device_ms_per_round": [
+               [e.key[:100], e.self_device_time_total / 1e3 / rounds,
+                e.count / rounds] for e in top],
+           "host_waits": waits}
+    print(f"profile, full width sync, {rounds} rounds from a built state: "
+          f"{json.dumps(out)} | {rt.card}", flush=True)
+    return out
+
+
+def _trajectory_check(rt, dev):
+    """The CUDA path against the CPU plain path from the same inputs, at
+    the golden test's shapes (tests/test_golden.py's tolerances)."""
+    gsz = GOLDEN
+    cfg_lda = rt.lda.LDAConfig(n_topics=gsz["k"], vocab_size=gsz["v"],
+                               alpha=0.5, doc_len_max=gsz["l"], n_gibbs=4,
+                               n_gibbs_burnin=2)
+    cpu = torch.device("cpu")
+    corpus = rt.data.make_corpus(cfg_lda, rt.tf3.key(0),
+                                 rt.data.CorpusSpec(n_nodes=gsz["n"],
+                                                    docs_per_node=4,
+                                                    n_test=4))
+    gobj = rt.graph.watts_strogatz_graph(gsz["n"], 4, 0.3, seed=0)
+    out = []
+    for kind, mode, every in (("edge", "async", 0), ("matching", "async", 0),
+                              ("matching", "sync", 10)):
+        sched, degs = rt.deleda.make_run_inputs(gobj, gsz["t"], seed=0,
+                                                kind=kind)
+        cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode=mode, batch_size=2,
+                                     eval_every=every)
+        init = rt.deleda.init_state(cfg, rt.tf3.key(1), gsz["n"])
+        traces = []
+        for d in (cpu, dev):
+            spec = None
+            if every:
+                spec = rt.evaluation.EvalSpec(
+                    words=corpus.test_words.to(d),
+                    mask=corpus.test_mask.to(d), key=rt.tf3.key(7, d),
+                    n_particles=4, probe_nodes=2)
+            state = rt.deleda.TrainState(stats=init.stats.to(d),
+                                         steps=init.steps.to(d),
+                                         key=init.key.to(d))
+            traces.append(rt.deleda.run_deleda(
+                cfg, init.key.to(d), corpus.words.to(d), corpus.mask.to(d),
+                sched, degs, gsz["t"], record_every=10, eval_spec=spec,
+                init=state))
+        a, b = traces
+        sa, sb = a.stats.double(), b.stats.double().cpu()
+        if a.steps.tolist() != b.steps.cpu().tolist():
+            raise AssertionError(f"trajectory {kind} {mode}: steps differ")
+        mass = abs(float(sb.sum()) / float(sa.sum()) - 1.0)
+        pa, pb = sa[::3, 1, ::7], sb[::3, 1, ::7]
+        if mass > 1e-4 or not torch.allclose(pb, pa, rtol=3e-3, atol=1e-5):
+            raise AssertionError(f"trajectory {kind} {mode}: mass rel diff "
+                                 f"{mass}, probe {pa} vs {pb}")
+        row = {"kind": kind, "mode": mode, "mass_rel_diff": mass,
+               "probe_max_abs_diff": float((pb - pa).abs().max())}
+        if every:
+            la, lb = a.eval_lp.double(), b.eval_lp.double().cpu()
+            if not torch.allclose(lb, la, rtol=1e-5, atol=0):
+                raise AssertionError(f"trajectory eval LP {la} vs {lb}")
+            row["eval_lp_max_rel_diff"] = float(((lb - la) / la).abs().max())
+        out.append(row)
+        print(f"trajectory check {kind} {mode}: {row}", flush=True)
+    return out
 
 
 def _kernel_line(name, route, source, replaces, rows, node_err):
@@ -363,7 +852,7 @@ def _kernel_line(name, route, source, replaces, rows, node_err):
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "shape": top["shape"],
-            "active_tokens": top["active_tokens"], "per_shape": rows}
+            "active_tokens": top.get("active_tokens"), "per_shape": rows}
 
 
 def _e2e(summary, offered):
@@ -393,7 +882,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = _smi("name,power.limit")
+    card = rt.card = _smi("name,power.limit")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} driver "
           f"{_smi('driver_version')} | {card}", flush=True)
 
@@ -421,6 +910,8 @@ def main() -> int:
     hold = {"lda_gibbs": _hold_gibbs, "lda_l2r": _hold_l2r}
     rows = [hold[name](rt, dev, case, SLICE["k"], SLICE["v"], 2 + i)
             for i, (name, case) in enumerate(cases)]
+    for (_name, case), row in zip(cases, rows):
+        row["phase"] = f"serving {case['queue']}"
     words, _bw, mf, _u, _z = _inputs(rt, dev, dict(
         b=256, l=64, lengths=("poisson", 2, 64)), 100, 50_000, 3)
     per_pos = torch.rand((256, 64, 100), device=dev)
@@ -432,20 +923,37 @@ def main() -> int:
 
     # phase 4: the main path, closed loop (capacity), then open loop
     with tempfile.TemporaryDirectory() as ckpt:
-        closed, n_closed = _drive(
-            rt, dev, SERVE_ARGS + ["--closed-loop", "--save", ckpt], cases,
-            trained=True)
+        closed = _drive(rt, dev,
+                        SERVE_ARGS + ["--closed-loop", "--save", ckpt],
+                        cases, rows, trained=True)
         rate = LOAD * closed["req_per_s"]
-        opened, n_open = _drive(
-            rt, dev, SERVE_ARGS + ["--rate", repr(rate), "--restore", ckpt],
-            cases, trained=False)
-    for row, a, b in zip(rows, n_closed, n_open):
-        row["launches"] = a + b
+        opened = _drive(rt, dev,
+                        SERVE_ARGS + ["--rate", repr(rate), "--restore", ckpt],
+                        cases, rows, trained=False)
+    torch.cuda.empty_cache()
+
+    # phase 5: DELEDA, every launched shape held first, then the paths
+    d_cases = _deleda_cases(rt)
+    d_rows = _hold_deleda(rt, dev, d_cases)
+    node_err["gossip_mix"] = _check_mix_scalar(rt, dev)
+    trajectory = _trajectory_check(rt, dev)
+    paper = _drive_paper(rt, dev, [r for r in d_rows
+                                   if r["phase"].startswith("paper")])
+    torch.cuda.empty_cache()
+    full = _drive_full(rt, dev, [r for r in d_rows
+                                 if r["phase"].startswith("full")])
+    torch.cuda.empty_cache()
+    profile = _profile_rounds(rt, dev)
+    for row in rows + d_rows:
+        if row["launches"] < 1:
+            raise AssertionError(f"held shape {row['shape']} "
+                                 f"({row['phase']}) was never launched")
 
     lines = []
-    for name, src, tpu in (("lda_gibbs", GIBBS_SRC, GIBBS_TPU),
+    for name, src, tpu in (("gossip_mix", MIX_SRC, MIX_TPU),
+                           ("lda_gibbs", GIBBS_SRC, GIBBS_TPU),
                            ("lda_l2r", L2R_SRC, L2R_TPU)):
-        mine = [r for (nm, _c), r in zip(cases, rows) if nm == name]
+        mine = [r for r in rows + d_rows if r["name"] == name]
         lines.append(_kernel_line(name, "cuda", src, tpu, mine,
                                   node_err[name]))
     print(json.dumps({"kernels": lines}))
@@ -453,6 +961,10 @@ def main() -> int:
         "goem_steps_per_s": closed["train_steps_per_s"],
         "closed_loop": _e2e(closed, None),
         "open_loop": _e2e(opened, rate), "card": card}}))
+    print(json.dumps({"deleda": {"paper": paper, "full_width": full,
+                                 "profile": profile,
+                                 "trajectory_check": trajectory,
+                                 "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,13 @@ The torch counterpart of the dense half of ``repro.core.estep``:
   (a deterministic ``[K, V]`` scatter-add), :func:`beta_w_from_stats`,
   :func:`theta_slab` (serving's mixture queries) and the
   :class:`DenseEStep` called by ``oem.oem_update``.
+* the **fused multi-node batch** — :func:`fused_sweeps`,
+  :func:`estep_batch` and :func:`estep_batch_from_stats`: DELEDA's awake
+  nodes' minibatches as one ``[A*B, L]`` sweep call (one kernel launch),
+  scattered back into ``[A, K, V]`` per-node statistics.
 
-Dispatch is by device: :func:`theta_slab` and :class:`DenseEStep` call
+Dispatch is by device: :func:`theta_slab`, :class:`DenseEStep` and
+:func:`fused_sweeps` call
 ``kernels.lda_gibbs.ops.gibbs_sweeps``, which launches the kernel for
 CUDA tensors and runs :func:`gibbs_sweeps_dense` for CPU tensors.
 
@@ -39,9 +44,11 @@ from repro_torch.core.lda import LDAConfig
 __all__ = [
     "GibbsResult", "seq_cumsum", "seq_sum", "sample_from_unnormalized",
     "sample_from_unnormalized_seq", "gibbs_position_update",
-    "gibbs_sweeps_dense", "gibbs_tie_margins", "draw_gibbs_randoms", "count_nonempty",
-    "stats_from_per_pos", "beta_w_from_stats", "theta_slab", "DenseEStep",
-    "get_estep",
+    "gibbs_sweeps_dense", "gibbs_tie_margins", "draw_gibbs_randoms",
+    "count_nonempty", "stats_from_per_pos", "stats_from_per_pos_batch",
+    "beta_w_from_stats", "beta_w_from_stats_batch", "theta_slab",
+    "DenseEStep", "get_estep", "fused_sweeps", "estep_batch",
+    "estep_batch_from_stats",
 ]
 
 
@@ -176,33 +183,42 @@ def gibbs_tie_margins(beta_w: torch.Tensor, maskf: torch.Tensor,
 
 def draw_gibbs_randoms(config: LDAConfig, key: torch.Tensor, b: int,
                        l: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The E-step stream: (uniforms ``[S, B, L]``, z0 ``[B, L]``)."""
-    k_init, k_u = tf3.split(key)
+    """The E-step stream: (uniforms ``[..., S, B, L]``, z0 ``[..., B, L]``)
+    for a key ``[..., 2]`` (one stream per leading index)."""
+    ks = tf3.split(key)
+    k_init, k_u = ks[..., 0, :], ks[..., 1, :]
     uniforms = tf3.uniform(k_u, (config.n_gibbs, b, l))
     z0 = tf3.randint(k_init, (b, l), 0, config.n_topics)
     return uniforms, z0
 
 
 def count_nonempty(mask: torch.Tensor) -> torch.Tensor:
-    """Number of documents with >= 1 unmasked position, at least 1."""
-    n = (mask.to(torch.float32).sum(-1) > 0).sum()
+    """Number of documents with >= 1 unmasked position, at least 1.
+
+    mask ``[..., B, L]``; one count per leading index.
+    """
+    n = (mask.to(torch.float32).sum(-1) > 0).sum(-1)
     return torch.clamp(n, min=1)
 
 
-def stats_from_per_pos(words: torch.Tensor, per_pos: torch.Tensor,
-                       vocab_size: int,
-                       maskf: torch.Tensor | None = None) -> torch.Tensor:
-    """Scatter ``[B, L, K]`` per-position stats into the per-doc-mean [K, V].
+def stats_from_per_pos_batch(words: torch.Tensor, per_pos: torch.Tensor,
+                             vocab_size: int,
+                             maskf: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Scatter ``[A, B, L, K]`` per-position stats into ``[A, K, V]``
+    per-document means, one ``[K, V]`` statistic per leading index.
 
-    The scatter-add runs under deterministic algorithms (on the GPU a
-    sorted, segmented accumulation instead of atomics), so a training
-    run gives the same bits every time. ``maskf`` sets the denominator
-    to the number of non-empty documents.
+    One scatter-add over the flat index ``a * V + word``, run under
+    deterministic algorithms (on the GPU a sorted, segmented
+    accumulation instead of atomics), so a training run gives the same
+    bits every time. ``maskf`` ``[A, B, L]`` sets each denominator to the
+    number of non-empty documents.
     """
-    b, _l, k = per_pos.shape
-    flat_w = words.reshape(-1).to(torch.int64)
+    a, b, _l, k = per_pos.shape
+    offs = torch.arange(a, device=words.device)[:, None, None] * vocab_size
+    flat_w = (words.to(torch.int64) + offs).reshape(-1)
     flat_p = per_pos.reshape(-1, k)
-    acc = torch.zeros((vocab_size, k), dtype=per_pos.dtype,
+    acc = torch.zeros((a * vocab_size, k), dtype=per_pos.dtype,
                       device=per_pos.device)
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -210,11 +226,23 @@ def stats_from_per_pos(words: torch.Tensor, per_pos: torch.Tensor,
         acc.index_put_((flat_w,), flat_p, accumulate=True)
     finally:
         torch.use_deterministic_algorithms(prev)
+    out = acc.view(a, vocab_size, k).transpose(1, 2).contiguous()
     if maskf is None:
-        denom = float(b)
-    else:
-        denom = count_nonempty(maskf).to(per_pos.dtype)
-    return acc.T.contiguous() / denom
+        return out.div_(float(b))
+    return out.div_(count_nonempty(maskf).to(per_pos.dtype)[:, None, None])
+
+
+def stats_from_per_pos(words: torch.Tensor, per_pos: torch.Tensor,
+                       vocab_size: int,
+                       maskf: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter ``[B, L, K]`` per-position stats into the per-doc-mean [K, V].
+
+    :func:`stats_from_per_pos_batch` for one batch; ``maskf`` sets the
+    denominator to the number of non-empty documents.
+    """
+    return stats_from_per_pos_batch(
+        words[None], per_pos[None], vocab_size,
+        None if maskf is None else maskf[None])[0]
 
 
 def beta_w_from_stats(stats: torch.Tensor, words: torch.Tensor, tau: float,
@@ -226,11 +254,33 @@ def beta_w_from_stats(stats: torch.Tensor, words: torch.Tensor, tau: float,
     ``denom`` is the cached [K] normaliser (``lda.eta_star_denom``).
     """
     k = stats.shape[0]
-    stats = stats.reshape(k, -1)
+    return beta_w_from_stats_batch(
+        stats.reshape(k, -1)[None], words[None], tau,
+        None if denom is None else denom[None])[0]
+
+
+def _gather_columns(mat: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """``mat[a][:, words[a]]`` moved to ``[A, B, L, K]``, for mat
+    ``[A, K, V]`` and words ``[A, B, L]``."""
+    a, k, _v = mat.shape
+    idx = words.reshape(a, 1, -1).to(torch.int64).expand(a, k, -1)
+    cols = torch.gather(mat, 2, idx).transpose(1, 2)             # [A, BL, K]
+    return cols.reshape(*words.shape, k)
+
+
+def beta_w_from_stats_batch(stats: torch.Tensor, words: torch.Tensor,
+                            tau: float,
+                            denom: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """:func:`beta_w_from_stats` for A statistics at once.
+
+    stats ``[A, K, V]``, words ``[A, B, L]``, ``denom`` the cached
+    ``[A, K]`` normalisers or None; returns ``[A, B, L, K]``.
+    """
     if denom is None:
-        denom = (stats + tau).sum(-1)
-    cols = stats[:, words].movedim(0, -1)
-    return (cols + tau) / denom
+        denom = (stats + tau).sum(-1)                            # [A, K]
+    cols = _gather_columns(stats, words)
+    return (cols + tau) / denom[:, None, None, :]
 
 
 def theta_slab(key: torch.Tensor, doc_ids: torch.Tensor,
@@ -286,3 +336,61 @@ class DenseEStep:
 def get_estep() -> DenseEStep:
     """The E-step; only the dense corpus layout is ported."""
     return DenseEStep()
+
+
+# ----------------------------------------------------------------------------
+# Fused multi-node batch path (DELEDA's local updates)
+# ----------------------------------------------------------------------------
+
+def fused_sweeps(config: LDAConfig, keys: torch.Tensor,
+                 beta_w: torch.Tensor, maskf: torch.Tensor) -> torch.Tensor:
+    """A nodes' minibatches as ONE ``[A*B, L]`` sweep call.
+
+    keys ``[A, 2]`` per-node streams, beta_w ``[A, B, L, K]`` likelihood
+    rows, maskf ``[A, B, L]``. Returns per-position statistics
+    ``[A, B, L, K]``: one ``lda_gibbs`` launch on the card. Every sweep
+    operation is per document, so fusing the nodes changes no bits.
+    """
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+
+    a, b, l, k = beta_w.shape
+    s = config.n_gibbs
+    uniforms, z0 = draw_gibbs_randoms(config, keys, b, l)  # [A, S, B, L]
+    per_pos, _z, _ndk = gibbs_ops.gibbs_sweeps(
+        beta_w.reshape(a * b, l, k), maskf.reshape(a * b, l),
+        uniforms.transpose(0, 1).reshape(s, a * b, l),
+        z0.reshape(a * b, l), alpha=config.alpha, n_sweeps=s,
+        burnin=config.n_gibbs_burnin)
+    return per_pos.reshape(a, b, l, k)
+
+
+def estep_batch(config: LDAConfig, keys: torch.Tensor, words: torch.Tensor,
+                mask: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """All awake nodes' E-steps as one fused sweep call.
+
+    keys ``[A, 2]`` (the caller's ``fold_in(key, node_id)`` streams),
+    words/mask ``[A, B, L]``, beta ``[A, K, V]``; returns per-node
+    statistics ``[A, K, V]``.
+    """
+    beta_w = _gather_columns(beta, words)
+    maskf = mask.to(beta.dtype)
+    per_pos = fused_sweeps(config, keys, beta_w, maskf)
+    return stats_from_per_pos_batch(words, per_pos, config.vocab_size,
+                                    maskf)
+
+
+def estep_batch_from_stats(config: LDAConfig, keys: torch.Tensor,
+                           words: torch.Tensor, mask: torch.Tensor,
+                           stats: torch.Tensor) -> torch.Tensor:
+    """Fused E-steps reading the topic matrix straight from the statistic.
+
+    Gathers only the minibatch's ``beta[:, words]`` columns from stats
+    ``[A, K, V]`` (:func:`beta_w_from_stats_batch`) instead of building
+    ``eta_star`` ``[A, K, V]``; the same values as :func:`estep_batch`
+    with ``beta = eta_star(stats, tau)``. Returns ``[A, K, V]``.
+    """
+    beta_w = beta_w_from_stats_batch(stats, words, config.tau)
+    maskf = mask.to(beta_w.dtype)
+    per_pos = fused_sweeps(config, keys, beta_w, maskf)
+    return stats_from_per_pos_batch(words, per_pos, config.vocab_size,
+                                    maskf)

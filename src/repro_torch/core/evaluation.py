@@ -20,11 +20,19 @@ resampling every particle's earlier assignments before scoring position n.
   O(B*L*K) columns of beta the documents hit, from a dense ``[K, V]`` or
   vocab-sharded ``[K, S, V/S]`` statistic.
 
-Not ported yet: the serial pre-draw estimator, the unique-token layout
-and the in-loop ``EvalSpec``.
+* **held-out LP** — :func:`heldout_lp_from_stats` (the in-loop
+  evaluator of ``deleda.train_steps``, several probe statistics in one
+  kernel launch), :func:`log_perplexity`, :func:`log_perplexity_from_stats`
+  and :func:`relative_perplexity_error` (paper Fig. 1a), with
+  :class:`EvalSpec` the in-loop request.
+
+Not ported yet: the serial pre-draw estimator and the unique-token
+layout.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,9 +40,27 @@ from repro_torch.core import estep as estep_mod
 from repro_torch.core import threefry as tf3
 
 __all__ = [
-    "l2r_position_scores", "left_to_right_fused", "ll_slab_from_beta",
-    "ll_slab_from_stats", "auto_chunk_docs", "evaluate_heldout",
+    "EvalSpec", "l2r_position_scores", "left_to_right_fused",
+    "ll_slab_from_beta", "ll_slab_from_stats", "auto_chunk_docs",
+    "evaluate_heldout", "heldout_lp_from_stats", "log_perplexity",
+    "log_perplexity_from_stats", "relative_perplexity_error",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalSpec:
+    """A held-out evaluation request run inside the training loop.
+
+    ``words``/``mask`` are the ``[B, L]`` held-out documents, ``key`` the
+    estimator's key (fixed, so the LP trajectory is comparable point to
+    point); ``probe_nodes`` leading nodes are evaluated at each point.
+    """
+
+    words: torch.Tensor
+    mask: torch.Tensor
+    key: torch.Tensor
+    n_particles: int = 10
+    probe_nodes: int = 3
 
 
 def _doc_keys(key: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:
@@ -196,3 +222,61 @@ def evaluate_heldout(key: torch.Tensor, words: torch.Tensor,
                                          mask[sl], beta, alpha,
                                          n_particles))
     return torch.cat(lls)[:b]
+
+
+def _lp_mean(ll: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """LP = -mean log-likelihood over the NON-EMPTY documents (last axis)."""
+    return -ll.sum(-1) / estep_mod.count_nonempty(mask).to(ll.dtype)
+
+
+def heldout_lp_from_stats(key: torch.Tensor, words: torch.Tensor,
+                          mask: torch.Tensor, stats: torch.Tensor,
+                          tau: float, alpha: float,
+                          n_particles: int = 10) -> torch.Tensor:
+    """LP straight from a statistic: scalar for stats ``[K, V]``, ``[A]``
+    for A statistics ``[A, K, V]``.
+
+    The documents of all A statistics go to the estimator as one
+    ``[A*B, L]`` batch (one ``lda_l2r`` launch on the card); every
+    document keeps its stream ``fold_in(key, doc_id)``, so each LP is the
+    one its statistic alone would give.
+    """
+    if stats.dim() == 2:
+        return heldout_lp_from_stats(key, words, mask, stats[None], tau,
+                                     alpha, n_particles)[0]
+    a = stats.shape[0]
+    b, l = words.shape
+    beta_w = estep_mod.beta_w_from_stats_batch(
+        stats, words.expand(a, b, l), tau)
+    doc_ids = torch.arange(b, device=words.device).repeat(a)
+    ll = left_to_right_fused(key, doc_ids, beta_w.reshape(a * b, l, -1),
+                             mask.repeat(a, 1), alpha, n_particles)
+    return _lp_mean(ll.reshape(a, b), mask)
+
+
+def log_perplexity(key: torch.Tensor, words: torch.Tensor,
+                   mask: torch.Tensor, beta: torch.Tensor, alpha: float,
+                   n_particles: int = 10) -> torch.Tensor:
+    """Held-out log-perplexity LP = -mean_d log p(X_d | beta), the mean
+    over non-empty documents (one estimator call over the whole batch)."""
+    doc_ids = torch.arange(words.shape[0], device=words.device)
+    ll = ll_slab_from_beta(key, doc_ids, words, mask, beta, alpha,
+                           n_particles)
+    return _lp_mean(ll, mask)
+
+
+def log_perplexity_from_stats(key: torch.Tensor, words: torch.Tensor,
+                              mask: torch.Tensor, stats: torch.Tensor, *,
+                              tau: float = 1e-2, alpha: float,
+                              n_particles: int = 10,
+                              chunk_docs: int | None = None) -> torch.Tensor:
+    """LP through the streaming evaluator (chunked, blocked-stats)."""
+    ll = evaluate_heldout(key, words, mask, stats=stats, tau=tau,
+                          alpha=alpha, n_particles=n_particles,
+                          chunk_docs=chunk_docs)
+    return _lp_mean(ll, mask)
+
+
+def relative_perplexity_error(lp, lp_star):
+    """The paper's reported metric: LP / LP* - 1."""
+    return lp / lp_star - 1.0

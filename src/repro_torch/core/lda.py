@@ -69,12 +69,13 @@ class LDAState:
 
 
 def init_stats(config: LDAConfig, key: torch.Tensor) -> torch.Tensor:
-    """Random positive initial statistic s0 ``[K, V]``: Dirichlet(1) rows.
+    """Random positive initial statistic s0 ``[..., K, V]``: Dirichlet(1)
+    rows, one statistic per leading index of the key ``[..., 2]``.
 
     Normalised Exponential(1) draws, as the reference draws them.
     """
     g = tf3.exponential(key, (config.n_topics, config.vocab_size))
-    return (g / g.sum(dim=1, keepdim=True)).to(config.dtype)
+    return (g / g.sum(dim=-1, keepdim=True)).to(config.dtype)
 
 
 def init_state(config: LDAConfig, key: torch.Tensor) -> LDAState:

@@ -2,7 +2,8 @@
 
 A CUDA tensor launches ``csrc/lda_gibbs.cu`` (or raises); a CPU tensor
 runs the plain version in ``ref.py``. ``launches`` counts kernel
-launches and nothing else.
+launches and nothing else; ``launches_by_shape`` counts them by
+``(B, L, K, S)``.
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.lda_gibbs.ref import gibbs_sweeps_ref
 
-__all__ = ["gibbs_sweeps", "launches", "MAX_TOPICS"]
+__all__ = ["gibbs_sweeps", "launches", "launches_by_shape", "MAX_TOPICS"]
 
 MAX_TOPICS = 128       # shared memory holds 3 x [K][32] floats per block
 launches = 0
+launches_by_shape: dict[tuple, int] = {}
 
 
 def _launch(beta_w, maskf, uniforms, z0, alpha, n_sweeps, burnin):
@@ -57,6 +59,8 @@ def _launch(beta_w, maskf, uniforms, z0, alpha, n_sweeps, burnin):
             ptr(common.stream_ptr()))
     common.check(err, "lda_gibbs")
     launches += 1
+    shape = (b, l, k, n_sweeps)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return per_pos, z.to(torch.int64), ndk_mean
 
 

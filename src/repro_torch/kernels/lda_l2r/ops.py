@@ -4,7 +4,8 @@ A CUDA tensor launches ``csrc/lda_l2r.cu`` (or raises); a CPU tensor
 runs the plain version in ``ref.py``. The per-document keys are derived
 by the caller (``fold_in(key, doc_id)``, outside the kernel, as in the
 reference's ``kernels/lda_l2r/ops.py``) and the ``[L, B]`` scores are
-summed over L by the caller. ``launches`` counts kernel launches only.
+summed over L by the caller. ``launches`` counts kernel launches only;
+``launches_by_shape`` counts them by ``(B, L, K, P)``.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ import torch
 
 from repro_torch.kernels import common
 
-__all__ = ["l2r_scores", "launches", "MAX_TOPICS"]
+__all__ = ["l2r_scores", "launches", "launches_by_shape", "MAX_TOPICS"]
 
 MAX_TOPICS = 128       # z is kept as uint8 in shared memory
 launches = 0
+launches_by_shape: dict[tuple, int] = {}
 
 
 def _launch(kd, beta_w, weights, alpha, n_particles):
@@ -55,6 +57,8 @@ def _launch(kd, beta_w, weights, alpha, n_particles):
             ptr(common.stream_ptr()))
     common.check(err, "lda_l2r")
     launches += 1
+    shape = (b, l, k, n_particles)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return ll
 
 

@@ -130,3 +130,39 @@ def test_kernels_match_plain_on_card(cuda_device):
     got = l2r_ops.l2r_scores(kd, args[0], args[1], 0.5, n_particles=4)
     want = evaluation.l2r_position_scores(kd, args[0], args[1], 0.5, 4)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_gossip_mix_matches_plain_on_card(cuda_device):
+    """K1 in place over the matched pairs equals ``0.5 * (S + S[p])``
+    exactly, on the float4 path and on the one-float path, and counts one
+    launch per call."""
+    from repro_torch.kernels.gossip_mix import ops as mix_ops
+    from repro_torch.kernels.gossip_mix import ref as mix_ref
+
+    rng = np.random.default_rng(0)
+    for shape in ((9, 4, 64), (9, 5, 51)):
+        s = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(
+            cuda_device)
+        p = np.arange(shape[0])
+        p[[0, 3, 5, 8]] = [3, 0, 8, 5]
+        want = mix_ref.mix_matching_ref(s, p)
+        before = mix_ops.launches
+        got = mix_ops.mix_pairs_(s.clone(), mix_ops.pairs_of(p))
+        torch.cuda.synchronize()
+        assert mix_ops.launches == before + 1
+        assert torch.equal(got, want)
+    # more pairs than one launch's parameters hold: two launches
+    n = 2 * mix_ops.MAX_PAIRS + 41
+    s = torch.from_numpy(rng.random((n, 3, 4), dtype=np.float32)).to(
+        cuda_device)
+    p = np.arange(n)
+    order = rng.permutation(n)[:2 * (mix_ops.MAX_PAIRS + 7)]
+    p[order[0::2]], p[order[1::2]] = order[1::2], order[0::2]
+    before = mix_ops.launches
+    by_shape = dict(mix_ops.launches_by_shape)
+    got = mix_ops.mix_pairs_(s.clone(), mix_ops.pairs_of(p))
+    torch.cuda.synchronize()
+    assert mix_ops.launches == before + 2
+    for key in ((n, 3, 4, mix_ops.MAX_PAIRS), (n, 3, 4, 7)):
+        assert mix_ops.launches_by_shape[key] == by_shape.get(key, 0) + 1
+    assert torch.equal(got, mix_ref.mix_matching_ref(s, p))
