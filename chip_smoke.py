@@ -54,12 +54,28 @@
      and the host's waits on the card.
    - a trajectory check at the golden test's shapes (K=3, V=20, L=8,
      N=8, T=20): the CUDA path against the CPU plain path from the same
-     inputs (steps equal, mass rtol 1e-4, probe rtol 3e-3, LP rtol 1e-5).
-5. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
+     inputs (steps equal, mass rtol 1e-4, probe rtol 3e-3, LP rtol 1e-5),
+     in both corpus layouts.
+5. The unique-token (CSR) layout (slice 3). ``lda_sparse`` on counts in
+   {0, 1} must give ``lda_gibbs``'s bits. Then the full width at L=256 on
+   a Zipf corpus (``launch/sparse_bench``'s: Zipf(2.2) words,
+   lognormal(4.4, 0.4) lengths; n=50 x 20 documents, the unique view's
+   counts summing to the mask's, U its realized maximum): every shape it
+   launches is held first with the documents it receives (``lda_gibbs``
+   at the dense fans, ``lda_sparse`` at the unique ones, with 0 tie flips
+   allowed, ``lda_l2r`` at the in-loop batch, dense and count-weighted at
+   U = L), then ``run_deleda`` runs the 40 rounds of step 4 in each
+   layout (rounds/s, the E-step kernel's ms a round, peak memory). Then
+   ``launch.sparse_bench.main`` on the card, all three regimes with their
+   asserts, every shape it launches held first and its launches checked
+   against its calls. The trajectory check of step 4 also runs the unique
+   layout (edge events, and matchings with the count-weighted in-loop
+   LP).
+6. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
-   counted launches), one
-   line of serving numbers and one of DELEDA numbers, each with the card.
-6. Prints the card's name and power limit, then ``{"ok": true, ...}``.
+   counted launches), one line each of serving, DELEDA and unique-layout
+   numbers with the card, and the script's seconds.
+7. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -74,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -111,6 +128,11 @@ FULL = dict(k=100, v=50_000, l=64, n=50, docs=20, batch=20, rounds=40,
             every=20, n_test=100, probes=3)
 FULL_RUNS = (("sync", "matching", "complete"),
              ("async", "edge", "watts_strogatz"))
+# the unique-token full width: the same model and network at L=256 on the
+# Zipf corpus of launch/sparse_bench, in the dense and the unique layouts
+ZFULL = dict(FULL, l=256)
+SPARSE_SRC = "src/repro_torch/kernels/lda_sparse/csrc/lda_sparse.cu"
+SPARSE_TPU = "src/repro/kernels/lda_sparse/lda_sparse.py:53"
 GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
 
 
@@ -122,26 +144,35 @@ def _smi(query: str) -> str:
 
 
 def _inputs(rt, dev, case, k, v, seed):
-    """Likelihood rows of random words under a random statistic.
+    """Likelihood rows of the case's words under a random statistic.
 
-    Lengths follow ``case["lengths"]``: ("poisson", lo, hi) is Poisson(10)
-    clipped to [lo, hi] (the training corpus), ("uniform", lo, hi) uniform
-    in [lo, hi] (the requests a bucket admits); ``full_first`` makes the
-    first document ``hi`` long.
+    ``case["docs"]`` = (words, weights) are the documents a phase gives
+    the kernel (a 0/1 mask, or the unique layout's counts). Otherwise the
+    words are random and the lengths follow ``case["lengths"]``:
+    ("poisson", lo, hi) is Poisson(10) clipped to [lo, hi] (the training
+    corpus), ("uniform", lo, hi) uniform in [lo, hi] (the requests a
+    bucket admits); ``full_first`` makes the first document ``hi`` long.
     """
     b, l, s = case["b"], case["l"], case.get("s", 1)
-    kind, lo, hi = case["lengths"]
     g = torch.Generator(device=dev).manual_seed(seed)
     stats = torch.rand((k, v), generator=g, device=dev)
-    words = torch.randint(0, v, (b, l), generator=g, device=dev)
-    if kind == "poisson":
-        lengths = torch.clamp(torch.poisson(
-            torch.full((b,), 10.0, device=dev), generator=g), lo, hi)
+    if "docs" in case:
+        words, mask = case["docs"]
+        if tuple(words.shape) != (b, l):
+            raise AssertionError(f"held documents {tuple(words.shape)} are "
+                                 f"not the case's [{b}, {l}]")
     else:
-        lengths = torch.randint(lo, hi + 1, (b,), generator=g, device=dev)
-    if case.get("full_first"):
-        lengths[0] = hi
-    mask = torch.arange(l, device=dev)[None, :] < lengths[:, None]
+        kind, lo, hi = case["lengths"]
+        words = torch.randint(0, v, (b, l), generator=g, device=dev)
+        if kind == "poisson":
+            lengths = torch.clamp(torch.poisson(
+                torch.full((b,), 10.0, device=dev), generator=g), lo, hi)
+        else:
+            lengths = torch.randint(lo, hi + 1, (b,), generator=g,
+                                    device=dev)
+        if case.get("full_first"):
+            lengths[0] = hi
+        mask = torch.arange(l, device=dev)[None, :] < lengths[:, None]
     beta_w = rt.estep.beta_w_from_stats(stats, words, 1e-2)
     uniforms = torch.rand((s, b, l), generator=g, device=dev)
     z0 = torch.randint(0, k, (b, l), generator=g, device=dev)
@@ -222,8 +253,8 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
     _w, bw, mf, u, z0 = _inputs(rt, dev, case, k, v, seed)
     kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
     plain_ms, want = _time_ms(
-        lambda: rt.estep.gibbs_sweeps_dense(bw, mf, u, z0, **kw), reps=2,
-        warmup=0)
+        lambda: rt.estep.gibbs_sweeps_dense(bw, mf, u, z0, **kw),
+        reps=case.get("plain_reps", 2), warmup=0)
     ms, got = _time_ms(lambda: rt.gibbs_ops.gibbs_sweeps(bw, mf, u, z0, **kw),
                        reps=7, device_only=True)
     bad = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -255,30 +286,85 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
 
 
 def _hold_l2r(rt, dev, case, k, v, seed):
-    """The kernel against its plain version at one shape, and their times."""
-    b, l, p = case["b"], case["l"], case["p"]
+    """The kernel against its plain version at one shape, and their times.
+
+    ``case["cw"]``: the count-weighted mode (weights are counts)."""
+    b, l, p, cw = case["b"], case["l"], case["p"], case.get("cw", False)
     _w, bw, mf, _u, _z = _inputs(rt, dev, case, k, v, seed)
     kd = rt.tf3.fold_in_data(rt.tf3.key(seed, dev),
                              torch.arange(b, device=dev))
     plain_ms, want = _time_ms(
-        lambda: rt.evaluation.l2r_position_scores(kd, bw, mf, 0.5, p),
-        reps=2, warmup=0)
+        lambda: rt.evaluation.l2r_position_scores(kd, bw, mf, 0.5, p, cw),
+        reps=case.get("plain_reps", 2), warmup=0)
     ms, got = _time_ms(
-        lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p),
+        lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p,
+                                      count_weighted=cw),
         reps=7, device_only=True)
     got = rt.evaluation._sum_positions(got)
     want = rt.evaluation._sum_positions(want)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     err = float((got - want).abs().max())
-    lens = mf.sum(-1).double()
+    lens = (mf > 0).sum(-1).double()
     bound, by = _l2r_bound(b, l, k, p, lens)
-    shape = f"B={b} L={l} K={k} P={p}"
+    shape = f"B={b} L={l} K={k} P={p}" + (" count-weighted" if cw else "")
     print(f"lda_l2r vs plain at {shape}: max_abs_err {err:.3g}; {ms:.3f} ms "
           f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | "
           f"{rt.card}", flush=True)
-    return dict(name="lda_l2r", key=(b, l, k, p), shape=shape, ms=ms,
+    return dict(name="lda_l2r", key=(b, l, k, p, cw), shape=shape, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                active_tokens=int(mf.sum()), max_abs_err=err, launches=0)
+                active_tokens=int(lens.sum()), max_abs_err=err, launches=0)
+
+
+def _sparse_bound(b, u, k, s, burnin, active):
+    """Bytes and operations the count-weighted sweeps need for ``active``
+    slots (count > 0; a padding slot is skipped).
+
+    Reads beta_w rows and uniforms of active slots, the counts and z0 in
+    full; writes per_unique, m and ndk_mean. Per active draw, as
+    ``_gibbs_bound``: 5K, and 3K more in kept sweeps; the final scaling
+    of per_unique 2K per active slot, the kept n_dk sums K per document
+    and kept sweep.
+    """
+    n_keep = s - burnin
+    bytes_moved = 4 * (active * k + s * active + 2 * b * u      # in
+                       + 2 * b * u * k + b * k)                 # out
+    ops = (active * (s * 5 * k + n_keep * 3 * k + 2 * k)
+           + b * k * (n_keep + 1))
+    return _bound(bytes_moved, ops)
+
+
+def _hold_sparse(rt, dev, case, k, v, seed):
+    """K4 against its plain version at one shape, with the phase's own
+    documents (``case["docs"]``: slot ids and counts), and their times.
+    Every draw must agree: the two share one association (0 tie flips)."""
+    b, u, s, burnin = case["b"], case["l"], case["s"], case["burnin"]
+    _w, bw, cf, un, z0 = _inputs(rt, dev, case, k, v, seed)
+    kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
+    plain_ms, want = _time_ms(
+        lambda: rt.estep.gibbs_sweeps_sparse(bw, cf, un, z0, **kw),
+        reps=case.get("plain_reps", 2), warmup=0)
+    ms, got = _time_ms(lambda: rt.sparse_ops.sparse_sweeps(bw, cf, un, z0,
+                                                           **kw),
+                       reps=7, device_only=True)
+    flips = int((got[1] != want[1]).reshape(b, -1).any(-1).sum())
+    active = int((cf > 0).sum())
+    if flips:
+        raise AssertionError(f"lda_sparse draws differ from its plain "
+                             f"version in {flips} documents at {case}")
+    for g, w in (got[0], want[0]), (got[2], want[2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    bound, by = _sparse_bound(b, u, k, s, burnin, active)
+    shape = f"B={b} U={u} K={k} S={s}"
+    print(f"lda_sparse vs plain at {shape}: max_abs_err {err:.3g}, tie "
+          f"flips {flips} in {active * s} draws; {ms:.3f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
+          flush=True)
+    return dict(name="lda_sparse", key=(b, u, k, s), shape=shape, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                active_tokens=active, max_abs_err=err, tie_flips=flips,
+                launches=0)
 
 
 def _main_path_cases(rt):
@@ -388,8 +474,8 @@ def _drive(rt, dev, argv, cases, rows, trained):
     summary = rt.serve_topics.main(argv)
     torch.cuda.synchronize()
     launches = rt.counts()
-    if launches.pop("gossip_mix") != 0:
-        raise AssertionError("serving launched gossip_mix")
+    if launches.pop("gossip_mix") != 0 or launches.pop("lda_sparse") != 0:
+        raise AssertionError("serving launched gossip_mix or lda_sparse")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel did not run on the main path: "
                              f"{launches}")
@@ -426,16 +512,19 @@ class _Port:
         from repro_torch.kernels.gossip_mix import ref as mix_ref
         from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
         from repro_torch.kernels.lda_l2r import ops as l2r_ops
-        from repro_torch.launch import deleda_experiment, serve_topics
+        from repro_torch.kernels.lda_sparse import ops as sparse_ops
+        from repro_torch.launch import (deleda_experiment, serve_topics,
+                                        sparse_bench)
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
         self.data, self.comm = lda_synthetic, comm
         self.common, self.gibbs_ops, self.l2r_ops = common, gibbs_ops, l2r_ops
         self.mix_ops, self.mix_ref = mix_ops, mix_ref
+        self.sparse_ops, self.sparse_bench = sparse_ops, sparse_bench
         self.serve_topics, self.experiment = serve_topics, deleda_experiment
         self.ops = {"gossip_mix": mix_ops, "lda_gibbs": gibbs_ops,
-                    "lda_l2r": l2r_ops}
+                    "lda_l2r": l2r_ops, "lda_sparse": sparse_ops}
 
         self.card = ""        # the card's name and power limit, for prints
 
@@ -550,15 +639,16 @@ def _deleda_cases(rt):
     ]
 
 
-def _hold_deleda(rt, dev, cases):
+def _hold_deleda(rt, dev, cases, seed=20):
+    """Each (kernel, phase, case) held against its plain version."""
+    hold = {"lda_gibbs": _hold_gibbs, "lda_l2r": _hold_l2r,
+            "lda_sparse": _hold_sparse}
     rows = []
     for i, (name, phase, case) in enumerate(cases):
         if name == "gossip_mix":
-            row = _hold_mix(rt, dev, case, 20 + i)
-        elif name == "lda_gibbs":
-            row = _hold_gibbs(rt, dev, case, case["k"], case["v"], 20 + i)
+            row = _hold_mix(rt, dev, case, seed + i)
         else:
-            row = _hold_l2r(rt, dev, case, case["k"], case["v"], 20 + i)
+            row = hold[name](rt, dev, case, case["k"], case["v"], seed + i)
         row["phase"] = phase
         rows.append(row)
         torch.cuda.empty_cache()
@@ -644,20 +734,25 @@ def _seconds(fn):
     return time.perf_counter() - t0, out
 
 
-def _drive_full(rt, dev, rows):
-    """run_deleda at K=100, V=50,000 for each (mode, kind, graph).
+def _drive_full(rt, dev, rows, cfg_lda, corpus, layout="dense",
+                max_unique=0, prefix="full"):
+    """run_deleda at K=100, V=50,000 for each (mode, kind, graph), in one
+    corpus layout.
 
     The initial state is built and timed on its own. Each run starts from
     it twice: the first (cold) run is timed but not counted; the second,
-    with the counters zeroed, gives the launches, rounds/s, peak memory
-    and kernel shares, and must repeat the first bit for bit.
+    with the counters zeroed, gives the launches, rounds/s, peak memory,
+    the E-step kernel's ms a round and kernel shares, and must repeat the
+    first bit for bit. The E-step launches are held under the phase
+    ``{prefix}_{mode}``, the evals under ``{prefix}_inloop`` and the
+    gossip under ``full_{mode}_mix``.
     """
     f = FULL
-    cfg_lda, corpus = _full_width_inputs(rt, dev)
     spec = rt.evaluation.EvalSpec(words=corpus.test_words,
                                   mask=corpus.test_mask,
                                   key=rt.tf3.key(1, dev), n_particles=10,
-                                  probe_nodes=f["probes"])
+                                  probe_nodes=f["probes"], layout=layout)
+    estep_kernel = "lda_sparse" if layout == "unique" else "lda_gibbs"
     out = {}
     for mode, kind, gname in FULL_RUNS:
         gobj = (rt.graph.complete_graph(f["n"]) if gname == "complete"
@@ -670,8 +765,10 @@ def _drive_full(rt, dev, rows):
                                  "perfect: the held shape is wrong")
         cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode=mode,
                                      batch_size=f["batch"],
-                                     eval_every=f["every"])
-        tag = f"full_{mode}"
+                                     eval_every=f["every"],
+                                     corpus_layout=layout,
+                                     max_unique=max_unique)
+        tag = f"{prefix}_{mode}"
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         init_s, state = _seconds(
@@ -692,12 +789,13 @@ def _drive_full(rt, dev, rows):
         rt.zero_counts()
         wall, trace = _seconds(run)
         peak = torch.cuda.max_memory_allocated()
-        where = f"full width {mode} {kind} {gname}"
+        where = (f"{prefix} {mode} {kind} {gname} (L={cfg_lda.doc_len_max}, "
+                 f"{layout} layout)")
         got = _tally(rt, rows, where)
         e = _expected(mode, sched, f["every"])
-        _check_phases(where, got, {f"{tag}_mix": e["gossip_mix"],
+        _check_phases(where, got, {f"full_{mode}_mix": e["gossip_mix"],
                                    tag: e["lda_gibbs"],
-                                   "full_inloop": e["lda_l2r"]})
+                                   f"{prefix}_inloop": e["lda_l2r"]})
         lp = trace.eval_lp
         if (lp.shape != (f["rounds"] // f["every"], f["probes"])
                 or not bool(torch.isfinite(lp).all())
@@ -712,11 +810,16 @@ def _drive_full(rt, dev, rows):
                                for r in rows if r["name"] == name)
                      for name in rt.ops}
         run_out = {"mode": mode, "kind": kind, "graph": gname,
+                   "layout": layout, "doc_len_max": cfg_lda.doc_len_max,
+                   "max_unique": max_unique,
                    "rounds": f["rounds"], "init_s": init_s,
                    "init_peak_mem_gb": init_peak / 1e9,
                    "cold_wall_s": cold_wall, "wall_s": wall,
                    "rounds_per_s": f["rounds"] / wall,
                    "peak_mem_gb": peak / 1e9, "launches": rt.counts(),
+                   "estep_kernel": estep_kernel,
+                   "estep_kernel_ms_per_round":
+                       kernel_ms[estep_kernel] / f["rounds"],
                    "kernel_share_of_wall": {k: v / 1e3 / wall
                                             for k, v in kernel_ms.items()},
                    "eval_lp": lp.tolist(),
@@ -724,11 +827,188 @@ def _drive_full(rt, dev, rows):
         out[f"{mode}_{kind}_{gname}"] = run_out
         print(f"{where}: init {init_s:.3f} s, cold run {cold_wall:.3f} s, "
               f"run {wall:.3f} s = {run_out['rounds_per_s']:.2f} rounds/s "
-              f"(from the built state, repeated bit for bit), peak "
+              f"(from the built state, repeated bit for bit), {estep_kernel}"
+              f" {run_out['estep_kernel_ms_per_round']:.3f} ms a round, peak "
               f"{run_out['peak_mem_gb']:.2f} GB, kernel share "
               f"{run_out['kernel_share_of_wall']} | {rt.card}", flush=True)
         del trace, state
     return out
+
+
+def _zipf_inputs(rt, dev):
+    """The unique-token full width: the full-width model at L=256 on the
+    Zipf corpus of ``launch/sparse_bench`` (Zipf 2.2 words,
+    lognormal(4.4, 0.4) lengths), and U = the training shards' realized
+    maximum of distinct words (nothing is dropped)."""
+    f = ZFULL
+    cfg_lda = rt.lda.LDAConfig(n_topics=f["k"], vocab_size=f["v"],
+                               alpha=0.5, doc_len_max=f["l"], n_gibbs=30,
+                               n_gibbs_burnin=15)
+    corpus = rt.data.make_corpus(
+        cfg_lda, rt.tf3.key(0, dev),
+        rt.data.CorpusSpec(n_nodes=f["n"], docs_per_node=f["docs"],
+                           n_test=f["n_test"], **rt.sparse_bench.ZIPF))
+    uw, counts = corpus.unique_view()
+    if not torch.equal(counts.sum(-1), corpus.mask.sum(-1)):
+        raise AssertionError("the unique view's counts do not sum to the "
+                             "mask's")
+    return cfg_lda, corpus, uw.shape[-1]
+
+
+def _zipf_cases(rt, corpus, u_max):
+    """Every E-step and estimator shape of the unique-token full width,
+    with the documents it gives them: the sync fan is every training
+    document, the async fan 40 of them, the in-loop batch the held-out set
+    once per probe node (dense, and as counts at U = L)."""
+    f = ZFULL
+    words, mask = corpus.flat_words, corpus.flat_mask
+    uw, counts = rt.estep.dense_to_unique(words, mask, u_max)
+    tw = corpus.test_words.repeat(f["probes"], 1)
+    tm = corpus.test_mask.repeat(f["probes"], 1)
+    tuw, tc = rt.estep.dense_to_unique(tw, tm)
+    kv = dict(k=f["k"], v=f["v"], plain_reps=1)
+    gib = dict(kv, s=30, burnin=15)
+    cases = []
+    for mode, b in (("sync", f["n"] * f["batch"]), ("async", 2 * f["batch"])):
+        cases.append(("lda_gibbs", f"zipf_dense_{mode}",
+                      dict(gib, b=b, l=f["l"],
+                           docs=(words[:b], mask[:b]))))
+        cases.append(("lda_sparse", f"zipf_unique_{mode}",
+                      dict(gib, b=b, l=u_max,
+                           docs=(uw[:b], counts[:b]))))
+    cases.append(("lda_l2r", "zipf_dense_inloop",
+                  dict(kv, b=tw.shape[0], l=f["l"], p=10, docs=(tw, tm))))
+    cases.append(("lda_l2r", "zipf_unique_inloop",
+                  dict(kv, b=tw.shape[0], l=f["l"], p=10, cw=True,
+                       docs=(tuw, tc))))
+    return cases
+
+
+def _drive_zipf(rt, dev, mix_rows):
+    """The unique-token full width in both layouts, every shape held
+    first. Returns (rows, per-layout results)."""
+    cfg_lda, corpus, u_max = _zipf_inputs(rt, dev)
+    rows = _hold_deleda(rt, dev, _zipf_cases(rt, corpus, u_max), seed=60)
+    lens = corpus.mask.sum(-1).double()
+    uniq = (corpus.unique_view()[1] > 0).sum(-1).double()
+    out = {"u_max": u_max, "mean_len": float(lens.mean()),
+           "max_len": float(lens.max()), "mean_unique": float(uniq.mean()),
+           "truncation_frac": corpus.length_truncation_frac}
+    print(f"unique-token full width: K={ZFULL['k']} V={ZFULL['v']} "
+          f"L={ZFULL['l']}, {out}", flush=True)
+    for layout in ("dense", "unique"):
+        out[layout] = _drive_full(
+            rt, dev, [r for r in rows if r["phase"].startswith(
+                f"zipf_{layout}")] + mix_rows, cfg_lda, corpus, layout,
+            u_max if layout == "unique" else 0, prefix=f"zipf_{layout}")
+        torch.cuda.empty_cache()
+    return rows, out
+
+
+def _bench_cases(rt, dev):
+    """Every kernel shape ``launch/sparse_bench`` launches, with the
+    documents it gives them: each regime's fan in both layouts, and (the
+    paper regime) the trajectory runs' sync E-steps at batch 4 and their
+    matchings' pair counts."""
+    sb = rt.sparse_bench
+    cases = []
+    for name, rg in sb.REGIMES.items():
+        cfg = sb.regime_config(rg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            corpus = sb.regime_corpus(cfg, rg, dev)
+        kv = dict(k=rg["k"], v=rg["v"], s=rg["n_gibbs"], burnin=rg["burnin"])
+        words, mask = sb.tiled_batch(corpus, rg["n"], rg["b"])
+        words, mask = words.flatten(0, 1), mask.flatten(0, 1)
+        uw, counts = rt.estep.unique_view(words, mask)
+        b, l, u = words.shape[0], words.shape[1], uw.shape[1]
+        cases.append(("lda_gibbs", f"bench_{name}",
+                      dict(kv, b=b, l=l, docs=(words, mask))))
+        cases.append(("lda_sparse", f"bench_{name}_unique",
+                      dict(kv, b=b, l=u, docs=(uw, counts))))
+        if not rg["steps"]:
+            continue
+        words, mask = sb.tiled_batch(corpus, rg["n"], 4)
+        words, mask = words.flatten(0, 1), mask.flatten(0, 1)
+        tuw, tc = rt.estep.dense_to_unique(words, mask, u)
+        cases.append(("lda_gibbs", f"bench_{name}_traj",
+                      dict(kv, b=words.shape[0], l=l, docs=(words, mask))))
+        cases.append(("lda_sparse", f"bench_{name}_traj_unique",
+                      dict(kv, b=words.shape[0], l=u, docs=(tuw, tc))))
+        sched, _degs = sb.trajectory_schedule(rg)
+        pairs = (sched.data != np.arange(rg["n"])).sum(1) // 2
+        for npairs in sorted(set(pairs.tolist()) - {0}):
+            cases.append(("gossip_mix", f"bench_{name}_mix_{npairs}",
+                          dict(n=rg["n"], k=rg["k"], v=rg["v"],
+                               pairs=npairs)))
+    return cases
+
+
+def _drive_sparse_bench(rt, dev):
+    """``launch/sparse_bench`` on the card, every regime with its asserts
+    (word-marginal mass, bitwise stats path, trajectory band and mass),
+    counters zeroed just before; its launches by shape are checked
+    against the calls it makes. Returns (held rows, its rows)."""
+    sb = rt.sparse_bench
+    rows = _hold_deleda(rt, dev, _bench_cases(rt, dev), seed=80)
+    rt.zero_counts()
+    bench = sb.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    got = _tally(rt, rows, "sparse_bench")
+    want = {}
+    for name, rg in sb.REGIMES.items():
+        calls = 2 * (1 + rg["iters"])          # E-step and sweeps alone
+        want[f"bench_{name}"] = want[f"bench_{name}_unique"] = calls
+        if not rg["steps"]:
+            continue
+        runs = sb.TRAJ_SEEDS                     # sync runs per layout
+        want[f"bench_{name}_traj"] = runs * rg["steps"]
+        want[f"bench_{name}_traj_unique"] = runs * rg["steps"]
+        sched, _degs = sb.trajectory_schedule(rg)
+        pairs = (sched.data != np.arange(rg["n"])).sum(1) // 2
+        for npairs in set(pairs.tolist()) - {0}:
+            want[f"bench_{name}_mix_{npairs}"] = 2 * runs * int(
+                (pairs == npairs).sum())
+    _check_phases("sparse_bench", got, want)
+    for row in bench:
+        print(f"sparse_bench {row['regime']}: speedup {row['speedup']:.3f}x,"
+              f" sweeps {row['sweeps_speedup']:.3f}x (the JAX bench's "
+              f"{sb.MIN_SPEEDUP}x on {row['gate']}: {row['gate_met']}) | "
+              f"{rt.card}", flush=True)
+    return rows, bench
+
+
+def _check_sparse_binary(rt, dev):
+    """Counts in {0, 1} on sorted documents without repeats: K4 gives
+    K2's bits (per-position means, n_dk means, and m = onehot(z))."""
+    b, l, k, s = 256, 64, 100, 30
+    g = torch.Generator(device=dev).manual_seed(7)
+    words = torch.argsort(torch.rand((b, 50_000), generator=g, device=dev),
+                          -1)[:, :l].sort(-1).values
+    lengths = torch.clamp(torch.poisson(torch.full((b,), 20.0, device=dev),
+                                        generator=g), 1, l)
+    mf = (torch.arange(l, device=dev)[None, :] < lengths[:, None]).float()
+    words = torch.where(mf > 0, words, torch.zeros_like(words))
+    uw, counts = rt.estep.dense_to_unique(words, mf > 0)
+    if not (torch.equal(uw, words) and torch.equal(counts.float(), mf)):
+        raise AssertionError("sorted distinct words: the unique view is "
+                             "not the document")
+    _w, bw, _m, un, z0 = _inputs(rt, dev, dict(b=b, l=l, s=s,
+                                               docs=(words, mf)),
+                                 k, 50_000, 8)
+    kw = dict(alpha=0.5, n_sweeps=s, burnin=15)
+    dense = rt.gibbs_ops.gibbs_sweeps(bw, mf, un, z0, **kw)
+    sparse = rt.sparse_ops.sparse_sweeps(bw, mf, un, z0, **kw)
+    onehot = torch.nn.functional.one_hot(dense[1], k).float() * mf[..., None]
+    same = (torch.equal(sparse[0], dense[0])
+            and torch.equal(sparse[2], dense[2])
+            and torch.equal(sparse[1], onehot))
+    if not same:
+        raise AssertionError("lda_sparse on counts in {0, 1} is not "
+                             "lda_gibbs bit for bit")
+    print(f"lda_sparse on counts in {{0, 1}} (B={b} L={l} K={k} S={s}): "
+          f"lda_gibbs's bits", flush=True)
+    return 0.0
 
 
 def _profile_rounds(rt, dev, rounds=10):
@@ -799,12 +1079,15 @@ def _trajectory_check(rt, dev):
                                                     n_test=4))
     gobj = rt.graph.watts_strogatz_graph(gsz["n"], 4, 0.3, seed=0)
     out = []
-    for kind, mode, every in (("edge", "async", 0), ("matching", "async", 0),
-                              ("matching", "sync", 10)):
+    for kind, mode, every, layout in (
+            ("edge", "async", 0, "dense"), ("matching", "async", 0, "dense"),
+            ("matching", "sync", 10, "dense"),
+            ("edge", "async", 0, "unique"),
+            ("matching", "async", 10, "unique")):
         sched, degs = rt.deleda.make_run_inputs(gobj, gsz["t"], seed=0,
                                                 kind=kind)
         cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode=mode, batch_size=2,
-                                     eval_every=every)
+                                     eval_every=every, corpus_layout=layout)
         init = rt.deleda.init_state(cfg, rt.tf3.key(1), gsz["n"])
         traces = []
         for d in (cpu, dev):
@@ -813,7 +1096,7 @@ def _trajectory_check(rt, dev):
                 spec = rt.evaluation.EvalSpec(
                     words=corpus.test_words.to(d),
                     mask=corpus.test_mask.to(d), key=rt.tf3.key(7, d),
-                    n_particles=4, probe_nodes=2)
+                    n_particles=4, probe_nodes=2, layout=layout)
             state = rt.deleda.TrainState(stats=init.stats.to(d),
                                          steps=init.steps.to(d),
                                          key=init.key.to(d))
@@ -823,14 +1106,16 @@ def _trajectory_check(rt, dev):
                 init=state))
         a, b = traces
         sa, sb = a.stats.double(), b.stats.double().cpu()
+        where = f"trajectory {kind} {mode} {layout}"
         if a.steps.tolist() != b.steps.cpu().tolist():
-            raise AssertionError(f"trajectory {kind} {mode}: steps differ")
+            raise AssertionError(f"{where}: steps differ")
         mass = abs(float(sb.sum()) / float(sa.sum()) - 1.0)
         pa, pb = sa[::3, 1, ::7], sb[::3, 1, ::7]
         if mass > 1e-4 or not torch.allclose(pb, pa, rtol=3e-3, atol=1e-5):
-            raise AssertionError(f"trajectory {kind} {mode}: mass rel diff "
-                                 f"{mass}, probe {pa} vs {pb}")
-        row = {"kind": kind, "mode": mode, "mass_rel_diff": mass,
+            raise AssertionError(f"{where}: mass rel diff {mass}, probe "
+                                 f"{pa} vs {pb}")
+        row = {"kind": kind, "mode": mode, "layout": layout,
+               "mass_rel_diff": mass,
                "probe_max_abs_diff": float((pb - pa).abs().max())}
         if every:
             la, lb = a.eval_lp.double(), b.eval_lp.double().cpu()
@@ -838,7 +1123,7 @@ def _trajectory_check(rt, dev):
                 raise AssertionError(f"trajectory eval LP {la} vs {lb}")
             row["eval_lp_max_rel_diff"] = float(((lb - la) / la).abs().max())
         out.append(row)
-        print(f"trajectory check {kind} {mode}: {row}", flush=True)
+        print(f"{where} check: {row}", flush=True)
     return out
 
 
@@ -878,6 +1163,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     rt = _Port()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -940,11 +1226,20 @@ def main() -> int:
     paper = _drive_paper(rt, dev, [r for r in d_rows
                                    if r["phase"].startswith("paper")])
     torch.cuda.empty_cache()
-    full = _drive_full(rt, dev, [r for r in d_rows
-                                 if r["phase"].startswith("full")])
+    full_rows = [r for r in d_rows if r["phase"].startswith("full")]
+    full = _drive_full(rt, dev, full_rows, *_full_width_inputs(rt, dev))
     torch.cuda.empty_cache()
     profile = _profile_rounds(rt, dev)
-    for row in rows + d_rows:
+
+    # phase 6: the unique-token layout (slice 3), shapes held in each
+    node_err["lda_sparse"] = _check_sparse_binary(rt, dev)
+    mix_rows = [r for r in full_rows if r["name"] == "gossip_mix"]
+    z_rows, zipf = _drive_zipf(rt, dev, mix_rows)
+    torch.cuda.empty_cache()
+    b_rows, bench = _drive_sparse_bench(rt, dev)
+    torch.cuda.empty_cache()
+    all_rows = rows + d_rows + z_rows + b_rows
+    for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
                                  f"({row['phase']}) was never launched")
@@ -952,8 +1247,9 @@ def main() -> int:
     lines = []
     for name, src, tpu in (("gossip_mix", MIX_SRC, MIX_TPU),
                            ("lda_gibbs", GIBBS_SRC, GIBBS_TPU),
-                           ("lda_l2r", L2R_SRC, L2R_TPU)):
-        mine = [r for r in rows + d_rows if r["name"] == name]
+                           ("lda_l2r", L2R_SRC, L2R_TPU),
+                           ("lda_sparse", SPARSE_SRC, SPARSE_TPU)):
+        mine = [r for r in all_rows if r["name"] == name]
         lines.append(_kernel_line(name, "cuda", src, tpu, mine,
                                   node_err[name]))
     print(json.dumps({"kernels": lines}))
@@ -965,6 +1261,10 @@ def main() -> int:
                                  "profile": profile,
                                  "trajectory_check": trajectory,
                                  "card": card}}))
+    print(json.dumps({"unique_layout": {"full_width": zipf,
+                                        "sparse_bench": bench,
+                                        "card": card}}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """DELEDA — Decentralized LDA (paper Algorithm 1 and its asynchronous variant).
 
-The torch counterpart of ``repro.core.deleda`` for the dense layout and
-simulated gossip on one device. n agents sit on an undirected graph; each
-holds a private shard of documents and a local statistic s_i ``[K, V]``.
+The torch counterpart of ``repro.core.deleda`` for simulated gossip on
+one device, in the dense and the unique-token corpus layouts. n agents
+sit on an undirected graph; each holds a private shard of documents and
+a local statistic s_i ``[K, V]``.
 Per iteration:
 
   1. a gossip event mixes statistics: one edge (i, j) activates (the
@@ -13,7 +14,11 @@ Per iteration:
      minibatch of its own documents; *asynchronous*: only the awake nodes
      (the activated pair; every matched node of a matching round) update.
      All updating nodes' E-steps are one fused ``[A*B, L]`` sweep call
-     (``estep.estep_batch_from_stats``, one ``lda_gibbs`` launch).
+     (``estep.estep_batch_from_stats``, one ``lda_gibbs`` launch). With
+     ``corpus_layout="unique"`` the corpus is converted once to
+     (word_id, count) slots and the E-step is one count-weighted
+     ``[A*B, U]`` call (``estep.estep_batch_from_stats_unique``, one
+     ``lda_sparse`` launch).
 
 The asynchronous variant keeps per-node step counters and, for edge
 schedules, the degree correction of Remark 1: node i's step is weighted
@@ -30,9 +35,9 @@ updated in place, and the loop never waits for the card: schedules are
 host data, the per-step keys and row indices are made on the device once
 per segment.
 
-Not ported yet (later slices): the vocab-sharded carry, the unique-token
-layout, churn and membership (``alive``/``member``), streamed corpora,
-forgetting (``decay``) and checkpoints of the :class:`TrainState`.
+Not ported yet (later slices): the vocab-sharded carry, churn and
+membership (``alive``/``member``), streamed corpora, forgetting
+(``decay``) and checkpoints of the :class:`TrainState`.
 """
 
 from __future__ import annotations
@@ -70,6 +75,12 @@ class DeledaConfig:
     eval_every: int = 0              # in-loop held-out LP every this many
                                      # steps (0 = off; needs an EvalSpec and
                                      # a multiple of record_every)
+    corpus_layout: str = "dense"     # "dense": per-position sweeps;
+                                     # "unique": count-weighted sweeps over
+                                     # (word_id, count) slots
+    max_unique: int = 0              # U of the unique view (0 = L, always
+                                     # enough); more distinct words than U
+                                     # in a document drop the overflow
 
     def __post_init__(self):
         if self.mode not in ("sync", "async"):
@@ -80,6 +91,15 @@ class DeledaConfig:
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, "
                              f"got {self.batch_size}")
+        if self.corpus_layout not in ("dense", "unique"):
+            raise ValueError(f"corpus_layout must be dense|unique, "
+                             f"got {self.corpus_layout!r}")
+        if self.max_unique < 0:
+            raise ValueError(f"max_unique must be >= 0 (0 = use L), "
+                             f"got {self.max_unique}")
+        if self.max_unique and self.corpus_layout != "unique":
+            raise ValueError("max_unique only applies to "
+                             "corpus_layout='unique'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +166,8 @@ def _update_rows(config, stats, steps, rows, k_sel, k_gibbs, words, mask,
     ``rows`` is a device index ``[A]`` or None for every node. Node i's
     minibatch and E-step draw from ``fold_in(k_sel, i)`` and
     ``fold_in(k_gibbs, i)``, so a node's update does not depend on which
-    nodes update beside it.
+    nodes update beside it. In the unique layout ``words``/``mask`` hold
+    the slots' word ids and counts.
     """
     n, d, _l = words.shape
     ids = (torch.arange(n, device=words.device) if rows is None
@@ -157,8 +178,12 @@ def _update_rows(config, stats, steps, rows, k_sel, k_gibbs, words, mask,
     bm = mask[ids[:, None], idx]
     keys = tf3.fold_in_data(k_gibbs, ids)                      # [A, 2]
     stats_rows = stats if rows is None else stats[rows]
-    stats_hat = estep_mod.estep_batch_from_stats(config.lda, keys, bw, bm,
-                                                 stats_rows)   # [A, K, V]
+    if config.corpus_layout == "unique":
+        stats_hat = estep_mod.estep_batch_from_stats_unique(
+            config.lda, keys, bw, bm, stats_rows)
+    else:
+        stats_hat = estep_mod.estep_batch_from_stats(
+            config.lda, keys, bw, bm, stats_rows)             # [A, K, V]
     t = (steps if rows is None else steps[rows]) + 1
     corr_rows = corr_t if rows is None else corr_t[rows]
     rho = torch.clamp((rho_fn(t) * corr_rows).to(stats.dtype), 0.0, 1.0)
@@ -208,13 +233,16 @@ def train_steps(config: DeledaConfig, state: TrainState,
     segment's host :class:`~repro_torch.core.comm.GossipSchedule`; corr
     ``[T, n]`` float32 Remark-1 weights on the device. Every per-step
     input is indexed by the absolute step ``state.t + offset``, so a run
-    split into segments gives the same bits as one segment.
+    split into segments gives the same bits as one segment. The unique
+    layout converts the corpus once here (``dense_to_unique`` with U =
+    ``max_unique`` or L) and the evaluator's documents with U = L, as
+    the reference does (its streams depend on that U).
     """
     t_seg = schedule.n_rounds
     if t_seg % record_every != 0:
         raise ValueError(f"segment length {t_seg} must be divisible by "
                          f"record_every={record_every}")
-    n, _d, _l = words.shape
+    n, _d, l = words.shape
     if schedule.n_nodes != n:
         raise ValueError(f"schedule has {schedule.n_nodes} nodes, the "
                          f"corpus {n}")
@@ -232,6 +260,12 @@ def train_steps(config: DeledaConfig, state: TrainState,
             raise ValueError("config.eval_every > 0 needs an eval_spec "
                              "(repro_torch.core.evaluation.EvalSpec)")
         probe = min(eval_spec.probe_nodes, n)
+        ew, em = eval_spec.words, eval_spec.mask
+        if eval_spec.layout == "unique":
+            ew, em = estep_mod.dense_to_unique(ew, em)
+    if config.corpus_layout == "unique":
+        words, mask = estep_mod.dense_to_unique(words, mask,
+                                                config.max_unique or l)
     comm = comm_mod.SimComm()
     rho_fn = make_rho_schedule(config.rho_kind, kappa=config.rho_kappa,
                                t0=config.rho_t0)
@@ -261,9 +295,8 @@ def train_steps(config: DeledaConfig, state: TrainState,
             consensus.append(gossip.consensus_distance(stats))
         if config.eval_every and (off + 1) % config.eval_every == 0:
             eval_lp.append(eval_mod.heldout_lp_from_stats(
-                eval_spec.key, eval_spec.words, eval_spec.mask,
-                stats[:probe], config.lda.tau, config.lda.alpha,
-                eval_spec.n_particles))
+                eval_spec.key, ew, em, stats[:probe], config.lda.tau,
+                config.lda.alpha, eval_spec.n_particles, eval_spec.layout))
     new_state = TrainState(stats=stats, steps=steps, key=state.key,
                            t=state.t + t_seg,
                            stats_version=state.stats_version + t_seg)

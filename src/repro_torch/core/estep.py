@@ -1,6 +1,6 @@
-"""G-OEM E-step: the categorical-sweep core and its front end (dense layout).
+"""G-OEM E-step: the categorical-sweep core and its front ends.
 
-The torch counterpart of the dense half of ``repro.core.estep``:
+The torch counterpart of ``repro.core.estep``:
 
 * the **sweep core** — :func:`sample_from_unnormalized` (inverse-CDF
   draw), :func:`gibbs_position_update` (one masked collapsed-Gibbs move)
@@ -18,15 +18,29 @@ The torch counterpart of the dense half of ``repro.core.estep``:
   :func:`estep_batch` and :func:`estep_batch_from_stats`: DELEDA's awake
   nodes' minibatches as one ``[A*B, L]`` sweep call (one kernel launch),
   scattered back into ``[A, K, V]`` per-node statistics.
+* the **unique-token (CSR) layout** — :func:`dense_to_unique` /
+  :func:`unique_view` turn ``[..., L]`` documents into ``(word_id,
+  count)`` pairs padded to U slots; :func:`gibbs_sweeps_sparse` moves all
+  ``c`` copies of a word with one count-weighted draw per slot (O(U)
+  draws a sweep, not O(L)); :func:`stats_from_unique` is the same
+  deterministic scatter on the unique ids; :class:`SparseEStep`,
+  :func:`fused_sweeps_sparse` and :func:`estep_batch_from_stats_unique`
+  are its front ends (DELEDA's ``corpus_layout="unique"``). With counts
+  in {0, 1} the sparse sweeps are the dense sweeps on the sorted
+  document, bit for bit.
 
 Dispatch is by device: :func:`theta_slab`, :class:`DenseEStep` and
 :func:`fused_sweeps` call
 ``kernels.lda_gibbs.ops.gibbs_sweeps``, which launches the kernel for
-CUDA tensors and runs :func:`gibbs_sweeps_dense` for CPU tensors.
+CUDA tensors and runs :func:`gibbs_sweeps_dense` for CPU tensors;
+:class:`SparseEStep` and :func:`fused_sweeps_sparse` call
+``kernels.lda_sparse.ops.sparse_sweeps`` (the ``lda_sparse`` kernel, or
+:func:`gibbs_sweeps_sparse` on the CPU).
 
 One association everywhere. Every running sum over topics is built as
 ``((p0 + p1) + p2) + ...``: the draw's CDF, its total (also the
-Rao-Blackwell normaliser) and the topic sums of :func:`theta_slab`.
+Rao-Blackwell normaliser, in both layouts) and the topic sums of
+:func:`theta_slab`.
 The reference draws with ``jnp.cumsum``, whose association XLA picks, so
 a draw can differ from the reference's where ``u * total`` falls within
 an ulp of a CDF value; the tests count such ties.
@@ -48,13 +62,26 @@ __all__ = [
     "count_nonempty", "stats_from_per_pos", "stats_from_per_pos_batch",
     "beta_w_from_stats", "beta_w_from_stats_batch", "theta_slab",
     "DenseEStep", "get_estep", "fused_sweeps", "estep_batch",
-    "estep_batch_from_stats",
+    "estep_batch_from_stats", "SparseGibbsResult", "dense_to_unique",
+    "unique_view", "stats_from_unique", "gibbs_sweeps_sparse",
+    "SparseEStep", "fused_sweeps_sparse",
+    "estep_batch_from_stats_unique",
 ]
 
 
 class GibbsResult(NamedTuple):
     stats: torch.Tensor   # [K, V] mean per-document sufficient statistics
     z: torch.Tensor       # [B, L] final topic assignments (int64)
+    n_dk: torch.Tensor    # [B, K] final doc-topic counts
+    theta: torch.Tensor   # [B, K] posterior-mean topic proportions
+
+
+class SparseGibbsResult(NamedTuple):
+    """E-step result in the unique-token layout: ``m[b, u, k]`` is how
+    many of slot u's ``c`` copies sit in topic k (``m.sum(-1) == c``)."""
+
+    stats: torch.Tensor   # [K, V] mean per-document sufficient statistics
+    m: torch.Tensor       # [B, U, K] final per-slot count splits
     n_dk: torch.Tensor    # [B, K] final doc-topic counts
     theta: torch.Tensor   # [B, K] posterior-mean topic proportions
 
@@ -150,6 +177,46 @@ def gibbs_sweeps_dense(beta_w: torch.Tensor, maskf: torch.Tensor,
             ndk_acc = ndk_acc + n_dk
     per_pos = acc / n_keep * maskf[..., None]
     return per_pos, z, ndk_acc / n_keep
+
+
+def gibbs_sweeps_sparse(beta_w: torch.Tensor, countf: torch.Tensor,
+                        uniforms: torch.Tensor, z0: torch.Tensor, *,
+                        alpha: float, n_sweeps: int, burnin: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain count-weighted sweeps: the ``lda_sparse`` kernel's function.
+
+    beta_w ``[B, U, K]`` rows of each slot's word, countf ``[B, U]``
+    counts (0 on padding slots), uniforms ``[S, B, U]``, z0 ``[B, U]``.
+    All ``c`` copies of a slot share one topic z: each move removes the
+    split ``c * onehot(z)`` from n_dk, draws z from ``(n_dk + alpha) *
+    beta_w`` and adds ``c * onehot(z)`` back. Returns (per_unique
+    ``[B, U, K]``, the mean over kept sweeps of ``c`` times the
+    Rao-Blackwell conditional; m ``[B, U, K]`` the final splits;
+    ndk_mean ``[B, K]``).
+    """
+    b, u_dim, k = beta_w.shape
+    n_keep = n_sweeps - burnin
+    z = z0.to(torch.int64).clone()
+    n_dk = (_one_hot(z, k, beta_w.dtype) * countf[..., None]).sum(1)
+    acc = torch.zeros_like(beta_w)
+    ndk_acc = torch.zeros((b, k), dtype=beta_w.dtype, device=beta_w.device)
+    for s in range(n_sweeps):
+        for i in range(u_dim):
+            c = countf[:, i, None]
+            n_dk = n_dk - c * _one_hot(z[:, i], k, n_dk.dtype)
+            probs = (n_dk + alpha) * beta_w[:, i]
+            cums = torch.stack(seq_cumsum(probs), dim=-1)
+            total = cums[..., -1:]
+            z[:, i] = (cums < uniforms[s, :, i, None] * total).sum(-1)
+            n_dk = n_dk + c * _one_hot(z[:, i], k, n_dk.dtype)
+            if s >= burnin:
+                acc[:, i] += c * (probs / torch.clamp(total, min=1e-30))
+        if s >= burnin:
+            ndk_acc = ndk_acc + n_dk
+    slotf = (countf > 0).to(beta_w.dtype)
+    per_unique = acc / n_keep * slotf[..., None]
+    m = countf[..., None] * _one_hot(z, k, beta_w.dtype)
+    return per_unique, m, ndk_acc / n_keep
 
 
 def gibbs_tie_margins(beta_w: torch.Tensor, maskf: torch.Tensor,
@@ -394,3 +461,128 @@ def estep_batch_from_stats(config: LDAConfig, keys: torch.Tensor,
     per_pos = fused_sweeps(config, keys, beta_w, maskf)
     return stats_from_per_pos_batch(words, per_pos, config.vocab_size,
                                     maskf)
+
+
+# ----------------------------------------------------------------------------
+# Unique-token (CSR) corpus layout
+# ----------------------------------------------------------------------------
+
+def dense_to_unique(words: torch.Tensor, mask: torch.Tensor,
+                    max_unique: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``[..., L]`` documents -> per-document (word_id, count) ``[..., U]``.
+
+    Sorts each document's unmasked tokens (masked ones to a sentinel past
+    every word id), marks where the sorted value changes and scatters
+    segment lengths into U = ``max_unique`` slots (default U = L, always
+    enough). Returns (uw ascending word ids, counts), both int64, with
+    padding slots (0, 0). A document with more than U distinct words
+    drops the overflow, as in the reference.
+    """
+    lead, l = words.shape[:-1], words.shape[-1]
+    u_dim = l if max_unique is None else int(max_unique)
+    w2 = words.reshape(-1, l).to(torch.int64)
+    m2 = mask.reshape(-1, l).to(torch.bool)
+    b = w2.shape[0]
+    sentinel = torch.iinfo(torch.int64).max
+    sw = torch.where(m2, w2, torch.full_like(w2, sentinel)).sort(-1).values
+    valid = sw != sentinel
+    first = valid.clone()
+    first[:, 1:] &= sw[:, 1:] != sw[:, :-1]
+    seg = first.cumsum(-1) - 1
+    # padding and overflow tokens land in a throwaway slot u_dim
+    seg = torch.where(valid & (seg < u_dim), seg, torch.full_like(seg, u_dim))
+    counts = torch.zeros((b, u_dim + 1), dtype=torch.int64,
+                         device=words.device)
+    counts.scatter_add_(1, seg, valid.to(torch.int64))
+    uw = torch.zeros_like(counts).scatter_reduce_(
+        1, seg, torch.where(valid, sw, torch.zeros_like(sw)), "amax")
+    return (uw[:, :u_dim].reshape(lead + (u_dim,)),
+            counts[:, :u_dim].reshape(lead + (u_dim,)))
+
+
+def unique_view(words: torch.Tensor, mask: torch.Tensor,
+                max_unique: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dense_to_unique` trimmed to the realized maximum U (one
+    host read), so the sweeps do O(realized U) work, not O(L)."""
+    uw, counts = dense_to_unique(words, mask, max_unique)
+    u_true = max(int((counts > 0).sum(-1).max()), 1)
+    return uw[..., :u_true], counts[..., :u_true]
+
+
+def stats_from_unique(uw: torch.Tensor, per_unique: torch.Tensor,
+                      vocab_size: int,
+                      countf: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter ``[B, U, K]`` per-slot stats into the per-doc-mean [K, V].
+
+    The rows already carry their slot's token mass, so this is
+    :func:`stats_from_per_pos` on the unique ids: given equal mass per
+    word the two layouts give the same bits. ``countf`` sets the
+    denominator to the documents with any positive count.
+    """
+    return stats_from_per_pos(uw, per_unique, vocab_size, countf)
+
+
+class SparseEStep:
+    """The E-step over unique-token documents (device-dispatched sweeps).
+
+    Uniforms and z0 are drawn per slot (``[S, B, U]`` / ``[B, U]``) from
+    the dense E-step's two-way key split.
+    """
+
+    name = "unique"
+
+    def __call__(self, config: LDAConfig, key: torch.Tensor,
+                 uw: torch.Tensor, counts: torch.Tensor,
+                 beta: torch.Tensor) -> SparseGibbsResult:
+        """uw/counts ``[B, U]`` (count 0 = padding), beta ``[K, V]``."""
+        from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+        b, u_dim = uw.shape
+        countf = counts.to(beta.dtype)
+        uniforms, z0 = draw_gibbs_randoms(config, key, b, u_dim)
+        per_unique, m, ndk_mean = sparse_ops.sparse_sweeps(
+            beta.T[uw], countf, uniforms, z0, alpha=config.alpha,
+            n_sweeps=config.n_gibbs, burnin=config.n_gibbs_burnin)
+        stats = stats_from_unique(uw, per_unique, config.vocab_size, countf)
+        theta = ndk_mean + config.alpha
+        return SparseGibbsResult(stats=stats, m=m, n_dk=m.sum(1),
+                                 theta=theta / seq_sum(theta))
+
+
+def fused_sweeps_sparse(config: LDAConfig, keys: torch.Tensor,
+                        beta_w: torch.Tensor,
+                        countf: torch.Tensor) -> torch.Tensor:
+    """A nodes' unique-token minibatches as ONE ``[A*B, U]`` sweep call.
+
+    keys ``[A, 2]``, beta_w ``[A, B, U, K]``, countf ``[A, B, U]``;
+    returns per-slot statistics ``[A, B, U, K]`` (token mass folded in):
+    one ``lda_sparse`` launch on the card.
+    """
+    from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+    a, b, u_dim, k = beta_w.shape
+    s = config.n_gibbs
+    uniforms, z0 = draw_gibbs_randoms(config, keys, b, u_dim)
+    per_unique, _m, _ndk = sparse_ops.sparse_sweeps(
+        beta_w.reshape(a * b, u_dim, k), countf.reshape(a * b, u_dim),
+        uniforms.transpose(0, 1).reshape(s, a * b, u_dim),
+        z0.reshape(a * b, u_dim), alpha=config.alpha, n_sweeps=s,
+        burnin=config.n_gibbs_burnin)
+    return per_unique.reshape(a, b, u_dim, k)
+
+
+def estep_batch_from_stats_unique(config: LDAConfig, keys: torch.Tensor,
+                                  uw: torch.Tensor, counts: torch.Tensor,
+                                  stats: torch.Tensor) -> torch.Tensor:
+    """Fused unique-layout E-steps reading beta from the statistic.
+
+    uw/counts ``[A, B, U]``, stats ``[A, K, V]``; gathers only the
+    O(A*B*U*K) columns the slots hit and returns ``[A, K, V]``.
+    """
+    beta_w = beta_w_from_stats_batch(stats, uw, config.tau)
+    countf = counts.to(beta_w.dtype)
+    per_unique = fused_sweeps_sparse(config, keys, beta_w, countf)
+    return stats_from_per_pos_batch(uw, per_unique, config.vocab_size,
+                                    countf)

@@ -1,6 +1,6 @@
 """Evaluation: streaming, chunk-invariant left-to-right log-likelihoods.
 
-The torch counterpart of the dense half of ``repro.core.evaluation``
+The torch counterpart of ``repro.core.evaluation``
 (Wallach et al. 2009, algorithm 3): for a document w_1..w_N,
 
     p(w | beta, alpha) ~= prod_n (1/P) sum_p p(w_n | z^p_<n, beta, alpha),
@@ -25,9 +25,16 @@ resampling every particle's earlier assignments before scoring position n.
   kernel launch), :func:`log_perplexity`, :func:`log_perplexity_from_stats`
   and :func:`relative_perplexity_error` (paper Fig. 1a), with
   :class:`EvalSpec` the in-loop request.
+* **two layouts** — ``layout="dense"`` scores positions under the 0/1
+  mask; ``layout="unique"`` scores (word_id, count) slots under their
+  counts, slot n contributing ``c_n * log p``
+  (:func:`left_to_right_unique_fused`, the kernel's ``count_weighted``
+  mode). :func:`evaluate_heldout` converts dense documents with
+  ``estep.unique_view``; :func:`heldout_lp_from_stats` takes the slots
+  as given.
 
-Not ported yet: the serial pre-draw estimator and the unique-token
-layout.
+Not ported: the serial pre-draw estimator (the fused scan is
+bit-compatible with it in the reference).
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ from repro_torch.core import estep as estep_mod
 from repro_torch.core import threefry as tf3
 
 __all__ = [
-    "EvalSpec", "l2r_position_scores", "left_to_right_fused",
-    "ll_slab_from_beta", "ll_slab_from_stats", "auto_chunk_docs",
-    "evaluate_heldout", "heldout_lp_from_stats", "log_perplexity",
+    "EvalSpec", "LAYOUTS", "l2r_position_scores", "left_to_right_fused",
+    "left_to_right_unique_fused", "ll_slab_from_beta",
+    "ll_slab_from_stats", "auto_chunk_docs", "evaluate_heldout",
+    "heldout_lp_from_stats", "log_perplexity",
     "log_perplexity_from_stats", "relative_perplexity_error",
 ]
 
@@ -54,6 +62,8 @@ class EvalSpec:
     ``words``/``mask`` are the ``[B, L]`` held-out documents, ``key`` the
     estimator's key (fixed, so the LP trajectory is comparable point to
     point); ``probe_nodes`` leading nodes are evaluated at each point.
+    ``layout="unique"`` scores the documents' (word_id, count) view
+    (``estep.dense_to_unique`` with U = L, made once per segment).
     """
 
     words: torch.Tensor
@@ -61,6 +71,10 @@ class EvalSpec:
     key: torch.Tensor
     n_particles: int = 10
     probe_nodes: int = 3
+    layout: str = "dense"
+
+
+LAYOUTS = ("dense", "unique")
 
 
 def _doc_keys(key: torch.Tensor, doc_ids: torch.Tensor) -> torch.Tensor:
@@ -78,13 +92,19 @@ def _sum_positions(scores: torch.Tensor) -> torch.Tensor:
 
 def l2r_position_scores(keys_kd: torch.Tensor, beta_w: torch.Tensor,
                         weights: torch.Tensor, alpha: float,
-                        n_particles: int) -> torch.Tensor:
+                        n_particles: int,
+                        count_weighted: bool = False) -> torch.Tensor:
     """Plain left-to-right scan: per-position scores ``[L, B]``.
 
     keys_kd ``[B, 2]`` doc-folded key words, beta_w ``[B, L, K]``,
-    weights ``[B, L]`` the 0/1 mask. The function of the ``lda_l2r``
-    kernel: the reference's ``_l2r_fused_core`` before its sum over L,
-    with every running sum in the fixed sequential association.
+    weights ``[B, L]`` the 0/1 mask or, with ``count_weighted``, the
+    unique layout's counts (slot n scores ``c_n * log p``). The function
+    of the ``lda_l2r`` kernel: the reference's ``_l2r_fused_core`` before
+    its sum over L, with every running sum in the fixed sequential
+    association. Position n's resample uniforms are the columns of
+    ``uniform(k_rs, (P, L))``, the same bits as the reference's
+    ``uniform_column``. Positions past the batch's last weighted one
+    score 0 and change nothing a score reads, so the scan stops there.
     """
     b, l, k = beta_w.shape
     p = n_particles
@@ -95,14 +115,16 @@ def l2r_position_scores(keys_kd: torch.Tensor, beta_w: torch.Tensor,
     z = torch.zeros((l, b, p), dtype=torch.int64, device=beta_w.device)
     n_k = torch.zeros((b, p, k), dtype=dt, device=beta_w.device)
     out = torch.zeros((l, b), dtype=dt, device=beta_w.device)
-    for n in range(l):
+    weighted = torch.nonzero((w_t > 0).any(1))
+    end = int(weighted[-1]) + 1 if len(weighted) else 0
+    for n in range(end):
         rs_d, dr_d = tf3.split2_data(tf3.fold_in_data(keys_kd, n))
         u_dr = tf3.uniform_halves(dr_d, p)          # [B, P]
+        u_rs = tf3.uniform(rs_d, (p, l)) if n else None   # [B, P, L]
         for i in range(n):
-            u = tf3.uniform_column(rs_d, p, l, i)    # [B, P]
             new_z, n_k, _post = estep_mod.gibbs_position_update(
                 n_k, z[i], bw_t[i][:, None, :],
-                w_t[i][:, None].expand(b, p), u, alpha)
+                w_t[i][:, None].expand(b, p), u_rs[..., i], alpha)
             z[i] = new_z
         bw_n = bw_t[n]                              # [B, K]
         w_n = w_t[n]                                # [B]
@@ -111,6 +133,8 @@ def l2r_position_scores(keys_kd: torch.Tensor, beta_w: torch.Tensor,
         p_w = estep_mod.seq_sum(theta_hat * bw_n[:, None, :])[..., 0]
         mean = estep_mod.seq_sum(p_w)[..., 0] / p
         raw = torch.log(torch.clamp(mean, min=1e-30))
+        if count_weighted:
+            raw = w_n * raw
         out[n] = torch.where(w_n > 0, raw, torch.zeros_like(raw))
         probs_n = (n_k + alpha) * bw_n[:, None, :]
         z_n = estep_mod.sample_from_unnormalized(probs_n, u_dr)
@@ -119,10 +143,23 @@ def l2r_position_scores(keys_kd: torch.Tensor, beta_w: torch.Tensor,
     return out
 
 
-def _l2r_fused_core(keys_kd, beta_w, weights, alpha, n_particles):
+def _l2r_fused_core(keys_kd, beta_w, weights, alpha, n_particles,
+                    count_weighted=False):
     """Plain ``[B]`` estimates: :func:`l2r_position_scores` summed over L."""
     return _sum_positions(l2r_position_scores(keys_kd, beta_w, weights,
-                                              alpha, n_particles))
+                                              alpha, n_particles,
+                                              count_weighted))
+
+
+def _scores(key, doc_ids, beta_w, weights, alpha, n_particles,
+            count_weighted):
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    scores = l2r_ops.l2r_scores(_doc_keys(key, doc_ids), beta_w,
+                                weights.to(beta_w.dtype), alpha,
+                                n_particles=n_particles,
+                                count_weighted=count_weighted)
+    return _sum_positions(scores)
 
 
 def left_to_right_fused(key: torch.Tensor, doc_ids: torch.Tensor,
@@ -132,27 +169,41 @@ def left_to_right_fused(key: torch.Tensor, doc_ids: torch.Tensor,
 
     The ``lda_l2r`` kernel on CUDA tensors, the plain scan on CPU ones.
     """
-    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+    return _scores(key, doc_ids, beta_w, mask, alpha, n_particles, False)
 
-    scores = l2r_ops.l2r_scores(_doc_keys(key, doc_ids), beta_w,
-                                mask.to(beta_w.dtype), alpha,
-                                n_particles=n_particles)
-    return _sum_positions(scores)
+
+def left_to_right_unique_fused(key: torch.Tensor, doc_ids: torch.Tensor,
+                               beta_w: torch.Tensor, counts: torch.Tensor,
+                               alpha: float,
+                               n_particles: int = 10) -> torch.Tensor:
+    """``[B]`` LLs of unique-token documents: rows ``[B, U, K]`` of the
+    slots' words, ``counts`` ``[B, U]``; slot n scores ``c_n * log p``."""
+    return _scores(key, doc_ids, beta_w, counts, alpha, n_particles, True)
+
+
+def _ll_from_beta_w(key, doc_ids, beta_w, weights, alpha, n_particles,
+                    layout):
+    """The estimator of ``layout``; in "unique" the weights are counts."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be dense|unique, got {layout!r}")
+    fn = left_to_right_unique_fused if layout == "unique" else \
+        left_to_right_fused
+    return fn(key, doc_ids, beta_w, weights, alpha, n_particles)
 
 
 def ll_slab_from_stats(key, doc_ids, words, mask, stats, tau, alpha,
-                       n_particles=10, denom=None):
+                       n_particles=10, denom=None, layout="dense"):
     """``[C]`` LLs for one slab, beta gathered from the statistic."""
     beta_w = estep_mod.beta_w_from_stats(stats, words, tau, denom=denom)
-    return left_to_right_fused(key, doc_ids, beta_w, mask, alpha,
-                               n_particles)
+    return _ll_from_beta_w(key, doc_ids, beta_w, mask, alpha, n_particles,
+                           layout)
 
 
 def ll_slab_from_beta(key, doc_ids, words, mask, beta, alpha,
-                      n_particles=10):
+                      n_particles=10, layout="dense"):
     """``[C]`` LLs for one slab against a dense ``[K, V]`` beta."""
-    return left_to_right_fused(key, doc_ids, beta.T[words], mask, alpha,
-                               n_particles)
+    return _ll_from_beta_w(key, doc_ids, beta.T[words], mask, alpha,
+                           n_particles, layout)
 
 
 _CHUNK_BUDGET_BYTES = 64 << 20
@@ -187,17 +238,22 @@ def evaluate_heldout(key: torch.Tensor, words: torch.Tensor,
                      mask: torch.Tensor, *, beta: torch.Tensor | None = None,
                      stats: torch.Tensor | None = None, tau: float = 1e-2,
                      alpha: float, n_particles: int = 10,
-                     chunk_docs: int | None = None) -> torch.Tensor:
-    """Per-document held-out log-likelihoods ``[B]``, dense layout.
+                     chunk_docs: int | None = None,
+                     layout: str = "dense") -> torch.Tensor:
+    """Per-document held-out log-likelihoods ``[B]``.
 
     Pass exactly one of ``beta=`` ([K, V]) or ``stats=`` ([K, V] or
     [K, S, V/S]). Documents are scored ``chunk_docs`` at a time (default
     from :func:`auto_chunk_docs`), the last chunk padded with empty
     documents; streams are keyed by the global document index, so the
-    result is the same for every chunking.
+    result is the same for every chunking. ``layout="unique"`` converts
+    the documents once to their (word_id, count) view (``unique_view``:
+    U the realized maximum) and runs the count-weighted estimator.
     """
     if (beta is None) == (stats is None):
         raise ValueError("pass exactly ONE of beta= or stats=")
+    if layout == "unique":
+        words, mask = estep_mod.unique_view(words, mask)
     b, l = words.shape
     if chunk_docs is None:
         k_dim = (beta if beta is not None else stats).shape[0]
@@ -216,11 +272,11 @@ def evaluate_heldout(key: torch.Tensor, words: torch.Tensor,
         if stats is not None:
             lls.append(ll_slab_from_stats(key, doc_ids[sl], words[sl],
                                           mask[sl], stats, tau, alpha,
-                                          n_particles))
+                                          n_particles, layout=layout))
         else:
             lls.append(ll_slab_from_beta(key, doc_ids[sl], words[sl],
                                          mask[sl], beta, alpha,
-                                         n_particles))
+                                         n_particles, layout))
     return torch.cat(lls)[:b]
 
 
@@ -232,25 +288,27 @@ def _lp_mean(ll: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def heldout_lp_from_stats(key: torch.Tensor, words: torch.Tensor,
                           mask: torch.Tensor, stats: torch.Tensor,
                           tau: float, alpha: float,
-                          n_particles: int = 10) -> torch.Tensor:
+                          n_particles: int = 10,
+                          layout: str = "dense") -> torch.Tensor:
     """LP straight from a statistic: scalar for stats ``[K, V]``, ``[A]``
     for A statistics ``[A, K, V]``.
 
     The documents of all A statistics go to the estimator as one
     ``[A*B, L]`` batch (one ``lda_l2r`` launch on the card); every
     document keeps its stream ``fold_in(key, doc_id)``, so each LP is the
-    one its statistic alone would give.
+    one its statistic alone would give. With ``layout="unique"``,
+    ``words``/``mask`` are already the (word_id, count) slots.
     """
     if stats.dim() == 2:
         return heldout_lp_from_stats(key, words, mask, stats[None], tau,
-                                     alpha, n_particles)[0]
+                                     alpha, n_particles, layout)[0]
     a = stats.shape[0]
     b, l = words.shape
     beta_w = estep_mod.beta_w_from_stats_batch(
         stats, words.expand(a, b, l), tau)
     doc_ids = torch.arange(b, device=words.device).repeat(a)
-    ll = left_to_right_fused(key, doc_ids, beta_w.reshape(a * b, l, -1),
-                             mask.repeat(a, 1), alpha, n_particles)
+    ll = _ll_from_beta_w(key, doc_ids, beta_w.reshape(a * b, l, -1),
+                         mask.repeat(a, 1), alpha, n_particles, layout)
     return _lp_mean(ll.reshape(a, b), mask)
 
 
@@ -269,11 +327,12 @@ def log_perplexity_from_stats(key: torch.Tensor, words: torch.Tensor,
                               mask: torch.Tensor, stats: torch.Tensor, *,
                               tau: float = 1e-2, alpha: float,
                               n_particles: int = 10,
-                              chunk_docs: int | None = None) -> torch.Tensor:
+                              chunk_docs: int | None = None,
+                              layout: str = "dense") -> torch.Tensor:
     """LP through the streaming evaluator (chunked, blocked-stats)."""
     ll = evaluate_heldout(key, words, mask, stats=stats, tau=tau,
                           alpha=alpha, n_particles=n_particles,
-                          chunk_docs=chunk_docs)
+                          chunk_docs=chunk_docs, layout=layout)
     return _lp_mean(ll, mask)
 
 

@@ -31,7 +31,7 @@ __all__ = ["BUILD_DIR", "KERNEL_NAMES", "build", "build_all", "load",
 
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
-KERNEL_NAMES = ("gossip_mix", "lda_gibbs", "lda_l2r")
+KERNEL_NAMES = ("gossip_mix", "lda_gibbs", "lda_l2r", "lda_sparse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -10,14 +10,20 @@
 // (k_rs, k_dr) = split(fold_in(doc_key, n)). The threefry streams are made
 // here from the per-document key words (csrc/threefry.cuh); nothing is
 // pre-drawn. Output is the [L, B] per-position score matrix; the caller
-// sums it over L.
+// sums it over L. The weights are the dense layout's 0/1 mask or the unique
+// layout's token counts (count_weighted, the reference's mode of the same
+// name): a slot of count c removes and adds c copies and, with
+// count_weighted, scores c * log p. A position of weight 0 scores 0 and
+// changes nothing, so each document's scan ends at its last weighted
+// position (the unique layout pads every document to U = L slots); the
+// rest of its scores are written as 0.
 //
 // What bounds it on an H100. Bytes: beta_w B*L*K*4 read, L*B*4 written (at
 // B=64, L=64, K=100: 1.6 MB, under a microsecond at 3.35 TB/s). Operations:
-// per chain about L^2/2 resample steps of ~4K float operations plus one
-// 20-round threefry cipher (~2e6 per chain at that shape). The bound is
-// the dependent chain: L^2/2 = 2048 sequential resample steps per particle,
-// each a K-step running sum.
+// per chain about E^2/2 resample steps (E the document's end) of ~4K float
+// operations plus one 20-round threefry cipher (~2e6 per chain at E = 64).
+// The bound is the dependent chain: E^2/2 sequential resample steps per
+// particle, each a K-step running sum.
 //
 // Design. One block per document, one thread per particle (chain). n_k[K]
 // and the current probabilities live in shared memory laid out
@@ -26,8 +32,9 @@
 // particle of the block. Both draws use the fixed sequential association
 // ((p0 + p1) + p2) + ..., as the plain torch version does, and nvcc runs
 // with --fmad=false, so kernel and plain version make the same draws;
-// the scores agree to an ulp of the mean over particles and of the log. The mean over particles is a fixed-order sum in shared memory by
-// thread 0, never atomics. The chain itself is not split; more chains per
+// the scores agree to an ulp of the mean over particles and of the log.
+// The mean over particles is a fixed-order sum in shared memory by thread
+// 0, never atomics. The chain itself is not split; more chains per
 // thread and overlap of the resample steps are later work.
 
 #include <cuda_runtime.h>
@@ -40,9 +47,9 @@ namespace {
 __global__ void l2r_scores_kernel(
     const long long* __restrict__ kd,    // [B, 2] key words (in int64)
     const float* __restrict__ beta_w,    // [B, L, K]
-    const float* __restrict__ weights,   // [B, L] 0/1 mask
+    const float* __restrict__ weights,   // [B, L] 0/1 mask or counts
     float* __restrict__ ll,              // [L, B] out
-    int B, int L, int K, float alpha, float alpha_sum) {
+    int B, int L, int K, float alpha, float alpha_sum, int count_weighted) {
   extern __shared__ float smem[];
   const int P = blockDim.x;
   const int p = threadIdx.x;
@@ -58,8 +65,13 @@ __global__ void l2r_scores_kernel(
   const float* w_doc = weights + (size_t)b * L;
   for (int k = 0; k < K; ++k) nk[k * P + p] = 0.0f;
   for (int i = 0; i < L; ++i) z[i * P + p] = 0;
+  int end = 0;                          // one past the last weighted slot
+  for (int i = 0; i < L; ++i)
+    if (w_doc[i] > 0.0f) end = i + 1;
+  if (p == 0)
+    for (int n = end; n < L; ++n) ll[(size_t)n * B + b] = 0.0f;
 
-  for (int n = 0; n < L; ++n) {
+  for (int n = 0; n < end; ++n) {
     uint32_t n1, n2, rs1, rs2, dr1, dr2;
     tf3::fold_in(k1, k2, (uint32_t)n, n1, n2);
     tf3::split2(n1, n2, rs1, rs2, dr1, dr2);
@@ -102,7 +114,8 @@ __global__ void l2r_scores_kernel(
     if (p == 0) {
       float s = 0.0f;
       for (int q = 0; q < P; ++q) s += pw[q];
-      const float raw = logf(fmaxf(s / (float)P, 1e-30f));
+      float raw = logf(fmaxf(s / (float)P, 1e-30f));
+      if (count_weighted) raw = w_n * raw;
       ll[(size_t)n * B + b] = w_n > 0.0f ? raw : 0.0f;
     }
 
@@ -132,7 +145,7 @@ __global__ void l2r_scores_kernel(
 extern "C" int lda_l2r_scores(const long long* kd, const float* beta_w,
                               const float* weights, float* ll, int B, int L,
                               int K, int P, float alpha, float alpha_sum,
-                              void* stream) {
+                              int count_weighted, void* stream) {
   const size_t smem = (size_t)(2 * K * P + P) * sizeof(float) +
                       (size_t)L * P;
   if (smem > 48 * 1024) {
@@ -142,6 +155,6 @@ extern "C" int lda_l2r_scores(const long long* kd, const float* beta_w,
     if (e != cudaSuccess) return (int)e;
   }
   l2r_scores_kernel<<<B, P, smem, (cudaStream_t)stream>>>(
-      kd, beta_w, weights, ll, B, L, K, alpha, alpha_sum);
+      kd, beta_w, weights, ll, B, L, K, alpha, alpha_sum, count_weighted);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@ runs the plain version in ``ref.py``. The per-document keys are derived
 by the caller (``fold_in(key, doc_id)``, outside the kernel, as in the
 reference's ``kernels/lda_l2r/ops.py``) and the ``[L, B]`` scores are
 summed over L by the caller. ``launches`` counts kernel launches only;
-``launches_by_shape`` counts them by ``(B, L, K, P)``.
+``launches_by_shape`` counts them by ``(B, L, K, P, count_weighted)``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ launches = 0
 launches_by_shape: dict[tuple, int] = {}
 
 
-def _launch(kd, beta_w, weights, alpha, n_particles):
+def _launch(kd, beta_w, weights, alpha, n_particles, count_weighted):
     global launches
     b, l, k = beta_w.shape
     if k > MAX_TOPICS:
@@ -54,24 +54,28 @@ def _launch(kd, beta_w, weights, alpha, n_particles):
             ptr(weights.data_ptr()), ptr(ll.data_ptr()), ctypes.c_int(b),
             ctypes.c_int(l), ctypes.c_int(k), ctypes.c_int(n_particles),
             ctypes.c_float(alpha), ctypes.c_float(alpha * k),
-            ptr(common.stream_ptr()))
+            ctypes.c_int(int(count_weighted)), ptr(common.stream_ptr()))
     common.check(err, "lda_l2r")
     launches += 1
-    shape = (b, l, k, n_particles)
+    shape = (b, l, k, n_particles, count_weighted)
     launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return ll
 
 
 def l2r_scores(kd: torch.Tensor, beta_w: torch.Tensor,
                weights: torch.Tensor, alpha: float, *,
-               n_particles: int = 10) -> torch.Tensor:
+               n_particles: int = 10,
+               count_weighted: bool = False) -> torch.Tensor:
     """Per-position left-to-right scores ``[L, B]``.
 
     kd ``[B, 2]`` per-document key words (doc-folded), beta_w
-    ``[B, L, K]`` float32 (K <= 128 on the card), weights ``[B, L]``
-    the 0/1 document mask; any B.
+    ``[B, L, K]`` float32 (K <= 128 on the card), weights ``[B, L]``:
+    the 0/1 document mask, or the unique layout's token counts with
+    ``count_weighted`` (slot n then scores ``c_n * log p``); any B.
     """
     if beta_w.device.type == "cpu":
         from repro_torch.kernels.lda_l2r.ref import l2r_scores_ref
-        return l2r_scores_ref(kd, beta_w, weights, alpha, n_particles)
-    return _launch(kd, beta_w, weights, float(alpha), int(n_particles))
+        return l2r_scores_ref(kd, beta_w, weights, alpha, n_particles,
+                              count_weighted)
+    return _launch(kd, beta_w, weights, float(alpha), int(n_particles),
+                   bool(count_weighted))

@@ -4,7 +4,8 @@ The port replays the reference's random streams, takes the reference's
 corpus arrays and starts from the reference's initial statistic, so it
 reproduces the pinned fingerprints of ``tests/golden_deleda.json`` at
 ``tests/test_golden.py``'s own tolerances and a synchronous run of the
-reference (the goldens are asynchronous only). Gibbs draws may differ
+reference (the goldens are asynchronous only), in the dense layout and
+in the unique-token layout (``sparse:…`` and ``eval:…:l2r:unique``). Gibbs draws may differ
 only at ulp ties (``test_torch_estep.py``); none occurs at these seeds.
 """
 
@@ -58,10 +59,12 @@ def ref_inputs():
     return corpus, stats0
 
 
-def _port_run(ref_inputs, kind, mode="async", eval_every=0, n_steps=T):
+def _port_run(ref_inputs, kind, mode="async", eval_every=0, n_steps=T,
+              layout="dense"):
     corpus, stats0 = ref_inputs
     cfg = deleda.DeledaConfig(lda=lda.LDAConfig(**KW), mode=mode,
-                              batch_size=2, eval_every=eval_every)
+                              batch_size=2, eval_every=eval_every,
+                              corpus_layout=layout)
     g = watts_strogatz_graph(N, 4, 0.3, seed=0)
     sched, degs = deleda.make_run_inputs(g, n_steps, seed=0, kind=kind)
     spec = None
@@ -69,7 +72,7 @@ def _port_run(ref_inputs, kind, mode="async", eval_every=0, n_steps=T):
         spec = evaluation.EvalSpec(
             words=to_torch(corpus.test_words, torch.int64),
             mask=to_torch(corpus.test_mask), key=port_key(jax.random.key(7)),
-            n_particles=4, probe_nodes=2)
+            n_particles=4, probe_nodes=2, layout=layout)
     key = port_key(jax.random.key(1))
     init = dataclasses.replace(deleda.init_state(cfg, key, N),
                                stats=torch.from_numpy(stats0))
@@ -87,10 +90,15 @@ def _fingerprint(trace):
             "consensus_final": float(trace.consensus[-1])}
 
 
-@pytest.mark.parametrize("kind", ["edge", "matching"])
-def test_trace_matches_golden(ref_inputs, kind):
-    trace, _cfg = _port_run(ref_inputs, kind)
-    got, want = _fingerprint(trace), GOLDEN[f"{kind}:dense:dense"]
+@pytest.mark.parametrize("kind,layout,golden", [
+    ("edge", "dense", "edge:dense:dense"),
+    ("matching", "dense", "matching:dense:dense"),
+    ("matching", "unique", "sparse:matching:dense:dense")],
+    ids=["edge", "matching", "sparse-matching"])
+def test_trace_matches_golden(ref_inputs, kind, layout, golden):
+    """Dense runs and the unique-token (count-weighted) run."""
+    trace, _cfg = _port_run(ref_inputs, kind, layout=layout)
+    got, want = _fingerprint(trace), GOLDEN[golden]
     assert got["steps"] == want["steps"]
     np.testing.assert_allclose(got["mass"], want["mass"], rtol=1e-4)
     np.testing.assert_allclose(got["sumsq"], want["sumsq"], rtol=1e-4)
@@ -101,25 +109,40 @@ def test_trace_matches_golden(ref_inputs, kind):
                                atol=1e-5)
 
 
-def test_eval_trace_matches_golden(ref_inputs):
-    trace, _cfg = _port_run(ref_inputs, "matching", eval_every=10)
-    want = GOLDEN["eval:matching:dense:dense:vs1"]
+def _check_eval_golden(ref_inputs, layout, golden):
+    trace, _cfg = _port_run(ref_inputs, "matching", eval_every=10,
+                            layout=layout)
+    want = GOLDEN[golden]
     assert list(trace.eval_lp.shape) == want["shape"]
     np.testing.assert_allclose(trace.eval_lp.double().numpy().reshape(-1),
                                want["eval_lp"], rtol=1e-5)
     # the in-loop evaluator leaves the training trajectory as it was
-    plain, _ = _port_run(ref_inputs, "matching")
+    plain, _ = _port_run(ref_inputs, "matching", layout=layout)
     assert torch.equal(trace.stats, plain.stats)
 
 
-@pytest.fixture(scope="module", params=["edge", "matching"])
+def test_eval_trace_matches_golden(ref_inputs):
+    _check_eval_golden(ref_inputs, "dense", "eval:matching:dense:dense:vs1")
+
+
+def test_unique_eval_trace_matches_golden(ref_inputs):
+    """Unique-layout training with the count-weighted in-loop evaluator."""
+    _check_eval_golden(ref_inputs, "unique",
+                       "eval:matching:dense:dense:l2r:unique")
+
+
+@pytest.fixture(scope="module", params=[("edge", "dense"),
+                                        ("matching", "dense"),
+                                        ("matching", "unique")],
+                ids=["edge", "matching", "matching-unique"])
 def sync_runs(request, ref_inputs):
     """(reference trace, port trace, graph, port config) of a sync run."""
     corpus, _stats0 = ref_inputs
-    kind = request.param
+    kind, layout = request.param
     with reference_mode():
         cfg = ref_deleda.DeledaConfig(lda=ref_lda.LDAConfig(**KW),
-                                      mode="sync", batch_size=2)
+                                      mode="sync", batch_size=2,
+                                      corpus_layout=layout)
         sched, degs = ref_deleda.make_run_inputs(ref_ws(N, 4, 0.3, seed=0),
                                                  T, seed=0, kind=kind)
         ref = ref_deleda.run_deleda(cfg, jax.random.key(1), corpus.words,
@@ -127,7 +150,7 @@ def sync_runs(request, ref_inputs):
                                     record_every=10)
         rep = ref_deleda.consensus_report(ref, ref_ws(N, 4, 0.3, seed=0),
                                           cfg, T, 10)
-    port, pcfg = _port_run(ref_inputs, kind, mode="sync")
+    port, pcfg = _port_run(ref_inputs, kind, mode="sync", layout=layout)
     return ref, rep, port, pcfg
 
 

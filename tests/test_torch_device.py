@@ -4,7 +4,8 @@ Entry points run on CUDA unless the caller asks for the CPU, and raise
 without a GPU; the port and ``chip_smoke.py`` import neither ``jax`` nor
 ``repro``; the package imports with no ``triton`` and no ``nvcc``. The
 kernels' agreement with their plain versions needs the card and is held
-by ``chip_smoke.py`` and by the last test here, which skips without one.
+by ``chip_smoke.py`` and by the tests here that take ``cuda_device``,
+which skip without one.
 """
 
 import ast
@@ -99,6 +100,21 @@ def test_cuda_tensor_is_never_served_by_plain_code():
                            n_particles=3)
 
 
+def test_sparse_cuda_tensor_is_never_served_by_plain_code():
+    """lda_sparse, like the other wrappers, refuses a non-CUDA device
+    that is not the CPU instead of falling back."""
+    from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_ops.sparse_sweeps(torch.empty(2, 3, 4, device=meta),
+                                 torch.empty(2, 3, device=meta),
+                                 torch.empty(5, 2, 3, device=meta),
+                                 torch.empty(2, 3, dtype=torch.int64,
+                                             device=meta),
+                                 alpha=0.5, n_sweeps=5, burnin=2)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -166,3 +182,75 @@ def test_gossip_mix_matches_plain_on_card(cuda_device):
     for key in ((n, 3, 4, mix_ops.MAX_PAIRS), (n, 3, 4, 7)):
         assert mix_ops.launches_by_shape[key] == by_shape.get(key, 0) + 1
     assert torch.equal(got, mix_ref.mix_matching_ref(s, p))
+
+
+def test_sparse_kernel_matches_plain_on_card(cuda_device):
+    """K4 makes its plain version's draws (m equal) with counts in
+    {0, 1, >1}, counts one launch by shape, and gives K2's bits on sorted
+    documents without repeats."""
+    from repro_torch.core import estep
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+    from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+    rng = np.random.default_rng(1)
+    b, l, k, s = 13, 24, 9, 6
+    words = torch.from_numpy(rng.integers(0, 8, (b, l)))
+    mask = torch.from_numpy(np.arange(l)[None, :]
+                            < rng.integers(1, l + 1, (b, 1)))
+    uw, counts = estep.unique_view(words, mask)
+    u = uw.shape[1]
+    bw = torch.from_numpy(rng.random((b, u, k), dtype=np.float32) + 1e-3)
+    un = torch.from_numpy(rng.random((s, b, u), dtype=np.float32))
+    z0 = torch.from_numpy(rng.integers(0, k, (b, u)))
+    args = [x.to(cuda_device) for x in (bw, counts.float(), un, z0)]
+    kw = dict(alpha=0.5, n_sweeps=s, burnin=3)
+    before = sparse_ops.launches_by_shape.get((b, u, k, s), 0)
+    got = sparse_ops.sparse_sweeps(*args, **kw)
+    torch.cuda.synchronize()
+    assert sparse_ops.launches_by_shape[(b, u, k, s)] == before + 1
+    want = estep.gibbs_sweeps_sparse(*args, **kw)
+    assert torch.equal(got[1], want[1])       # the same draws
+    for g, w in (got[0], want[0]), (got[2], want[2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    # counts in {0, 1}: the sparse kernel is the dense kernel
+    mf = (torch.arange(l)[None, :] < torch.arange(1, b + 1)[:, None]
+          ).float().to(cuda_device)
+    bw = torch.from_numpy(rng.random((b, l, k), dtype=np.float32)).to(
+        cuda_device)
+    un = torch.from_numpy(rng.random((s, b, l), dtype=np.float32)).to(
+        cuda_device)
+    z0 = torch.from_numpy(rng.integers(0, k, (b, l))).to(cuda_device)
+    dense = gibbs_ops.gibbs_sweeps(bw, mf, un, z0, **kw)
+    sparse = sparse_ops.sparse_sweeps(bw, mf, un, z0, **kw)
+    assert torch.equal(sparse[0], dense[0])
+    assert torch.equal(sparse[2], dense[2])
+    onehot = torch.nn.functional.one_hot(dense[1], k).float()
+    assert torch.equal(sparse[1], onehot * mf[..., None])
+
+
+def test_count_weighted_l2r_matches_plain_on_card(cuda_device):
+    """K3 in the count-weighted mode against its plain version, at U = L
+    with padding slots (the in-loop evaluator's layout)."""
+    from repro_torch.core import estep, evaluation
+    from repro_torch.core import threefry as tf3
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    rng = np.random.default_rng(2)
+    b, l, k, p = 9, 20, 6, 4
+    words = torch.from_numpy(rng.integers(0, 7, (b, l)))
+    mask = torch.from_numpy(np.arange(l)[None, :]
+                            < rng.integers(2, l + 1, (b, 1)))
+    uw, counts = estep.dense_to_unique(words, mask)
+    stats = torch.from_numpy(rng.random((k, 7), dtype=np.float32))
+    bw = estep.beta_w_from_stats(stats, uw, 1e-2).to(cuda_device)
+    cf = counts.float().to(cuda_device)
+    kd = tf3.fold_in_data(tf3.key(3, cuda_device),
+                          torch.arange(b, device=cuda_device))
+    before = l2r_ops.launches_by_shape.get((b, l, k, p, True), 0)
+    got = l2r_ops.l2r_scores(kd, bw, cf, 0.5, n_particles=p,
+                             count_weighted=True)
+    torch.cuda.synchronize()
+    assert l2r_ops.launches_by_shape[(b, l, k, p, True)] == before + 1
+    want = evaluation.l2r_position_scores(kd, bw, cf, 0.5, p,
+                                          count_weighted=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

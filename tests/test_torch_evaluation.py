@@ -3,7 +3,8 @@
 Same doc ids, keys and likelihood rows on both sides: per-document LLs
 agree at rtol 1e-5 (the resample draws share one association with the
 reference's ``sample_from_unnormalized_seq``; the z_n draw and the sums
-may differ in the last ulp). Within the port, every chunking of
+may differ in the last ulp), in the dense layout and in the
+count-weighted unique one. Within the port, every chunking of
 ``evaluate_heldout`` gives the same bits.
 """
 
@@ -16,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro.core import estep as ref_estep  # noqa: E402
 from repro.core import evaluation as ref_eval  # noqa: E402
 from repro.core import threefry as ref_tf3  # noqa: E402
 from repro_torch.core import evaluation  # noqa: E402
@@ -136,3 +138,93 @@ def test_l2r_ops_dispatches_cpu_to_plain():
     assert scores.shape == (6, 3)
     assert torch.equal(scores, evaluation.l2r_position_scores(
         kd, beta_w, to_torch(mask).float(), ALPHA, 2))
+
+
+def _dup_inputs(seed, b=7, l=14, k=4, v=9):
+    """Held-out documents with repeated words (a small vocabulary)."""
+    return _inputs(seed, b=b, l=l, k=k, v=v)
+
+
+def test_left_to_right_unique_fused_matches_reference():
+    stats, words, mask = _dup_inputs(20)
+    key = jax.random.key(21)
+    with reference_mode():
+        uw, counts = ref_estep.unique_view(jnp.asarray(words),
+                                           jnp.asarray(mask))
+        beta = jnp.asarray(stats / stats.sum(-1, keepdims=True))
+        beta_w = jnp.take(beta.T, uw, axis=0)
+        ids = jnp.arange(3, 3 + words.shape[0], dtype=jnp.int32)
+        want = np.asarray(ref_eval.left_to_right_unique_fused(
+            key, ids, beta_w, counts, ALPHA, 4))
+    assert int(np.asarray(counts).max()) > 1
+    got = evaluation.left_to_right_unique_fused(
+        port_key(key), to_torch(ids), to_torch(beta_w), to_torch(counts),
+        ALPHA, 4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_evaluate_heldout_unique_matches_reference():
+    stats, words, mask = _dup_inputs(22, b=9)
+    key = jax.random.key(23)
+    with reference_mode():
+        want = np.asarray(ref_eval.evaluate_heldout(
+            key, jnp.asarray(words), jnp.asarray(mask),
+            stats=jnp.asarray(stats), alpha=ALPHA, n_particles=3,
+            chunk_docs=4, layout="unique"))
+    got = evaluation.evaluate_heldout(
+        port_key(key), to_torch(words), to_torch(mask),
+        stats=to_torch(stats), alpha=ALPHA, n_particles=3, chunk_docs=4,
+        layout="unique").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    with pytest.raises(ValueError, match="layout"):
+        evaluation.evaluate_heldout(port_key(key), to_torch(words),
+                                    to_torch(mask), stats=to_torch(stats),
+                                    alpha=ALPHA, layout="csr")
+
+
+def test_evaluate_heldout_unique_chunk_invariant():
+    """Chunks of 1, 3 and B give the same bits in the unique layout."""
+    stats, words, mask = _dup_inputs(24, b=8)
+    args = (port_key(jax.random.key(25)), to_torch(words), to_torch(mask))
+    full = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                       alpha=ALPHA, n_particles=2,
+                                       chunk_docs=8, layout="unique")
+    for c in (1, 3):
+        got = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                          alpha=ALPHA, n_particles=2,
+                                          chunk_docs=c, layout="unique")
+        assert torch.equal(got, full), c
+
+
+def test_unique_layout_equals_dense_on_distinct_words():
+    """Sorted documents without repeats: counts are the mask, and the
+    count-weighted estimator gives the dense one's bits."""
+    rng = np.random.default_rng(26)
+    b, l, v = 5, 10, 40
+    words = np.sort(np.stack([rng.choice(v, l, replace=False)
+                              for _ in range(b)]), -1).astype(np.int32)
+    mask = np.arange(l)[None, :] < np.array([l, 7, 2, 9, l])[:, None]
+    words = np.where(mask, words, 0)
+    stats = rng.random((4, v), dtype=np.float32)
+    args = (port_key(jax.random.key(27)), to_torch(words), to_torch(mask))
+    dense = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                        alpha=ALPHA, n_particles=3)
+    unique = evaluation.evaluate_heldout(*args, stats=to_torch(stats),
+                                         alpha=ALPHA, n_particles=3,
+                                         layout="unique")
+    assert torch.equal(dense, unique)
+
+
+def test_count_weighted_scores_on_cpu_are_the_plain_version():
+    stats, words, mask = _dup_inputs(28, b=3, l=6, k=3)
+    beta_w = to_torch(np.take(stats.T, words, axis=0))
+    counts = to_torch(mask.astype(np.float32) * 2)
+    kd = port_key(jax.random.key(2)).expand(3, 2)
+    before = l2r_ops.launches
+    got = l2r_ops.l2r_scores(kd, beta_w, counts, ALPHA, n_particles=2,
+                             count_weighted=True)
+    assert l2r_ops.launches == before
+    assert torch.equal(got, evaluation.l2r_position_scores(
+        kd, beta_w, counts, ALPHA, 2, count_weighted=True))
+    plain = evaluation.l2r_position_scores(kd, beta_w, counts, ALPHA, 2)
+    assert torch.equal(got, torch.where(counts.T > 0, 2 * plain, plain))
