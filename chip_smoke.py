@@ -71,11 +71,29 @@
    against its calls. The trajectory check of step 4 also runs the unique
    layout (edge events, and matchings with the count-weighted in-loop
    LP).
-6. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
+6. The LM slice (the port's fourth): gemma2-2b at full width (26 layers, d=2304,
+   vocab 256,000, random bf16 weights from seed 0). ``flash_attention``
+   (K5) is held against its plain version at every shape the phase
+   launches (bf16 within 3e-2, float32 within 2e-5) and timed beside its
+   bound and a compiled ``flex_attention`` call (the library yardstick,
+   "none" with its error if it does not run): serving's decode against
+   the cache (B=4, Sq=1, S_max=192) at q_offset 0, 95 and 190, the
+   float32 check's forward [4, 128] and decode (S_max=128), the bf16
+   prefill at S=8192; each local (window 4096) and global. Then, with
+   the counters set to 0 before each and read after:
+   ``launch.serve.main`` (``--arch gemma2_2b --full --batch 4
+   --prompt-len 128 --gen 64``): 26 x 191 K5 launches, half local and
+   half global, every one at a held shape; prefill s, decode s, tok/s
+   and peak memory. The float32 forward over a [4, 128] prompt against
+   the same prompt teacher-forced through ``decode_step`` (rel max error
+   of the logits < 2e-3, ``tests/test_decode_consistency.py``'s bound).
+   ``forward`` once at B=1, S=8192 in bf16 (26 launches): seconds and
+   peak memory. Then 8 decode steps under ``torch.profiler``.
+7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
-   counted launches), one line each of serving, DELEDA and unique-layout
-   numbers with the card, and the script's seconds.
-7. Prints the card's name and power limit, then ``{"ok": true, ...}``.
+   counted launches), one line each of serving, DELEDA, unique-layout
+   and LM-serving numbers with the card, and the script's seconds.
+8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -83,7 +101,9 @@ device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -134,6 +154,17 @@ ZFULL = dict(FULL, l=256)
 SPARSE_SRC = "src/repro_torch/kernels/lda_sparse/csrc/lda_sparse.cu"
 SPARSE_TPU = "src/repro/kernels/lda_sparse/lda_sparse.py:53"
 GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
+# the LM slice: gemma2-2b at full width served through launch/serve, and
+# one prefill at S=8192 (the catalog's prefill_32k cut: its [32, 32768,
+# 256000] logits alone would be 537 GB in bf16)
+LM = dict(arch="gemma2_2b", batch=4, prompt=128, gen=64, seed=0)
+LM_ARGS = ["--arch", LM["arch"], "--full", "--batch", str(LM["batch"]),
+           "--prompt-len", str(LM["prompt"]), "--gen", str(LM["gen"]),
+           "--seed", str(LM["seed"]), "--device", "cuda"]
+PREFILL_S = 8192
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:90"
 
 
 def _smi(query: str) -> str:
@@ -205,9 +236,10 @@ def _time_ms(fn, reps: int, warmup: int = 1, device_only: bool = False):
     return statistics.median(times), out
 
 
-def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, ops: float,
+           ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -515,6 +547,11 @@ class _Port:
         from repro_torch.kernels.lda_sparse import ops as sparse_ops
         from repro_torch.launch import (deleda_experiment, serve_topics,
                                         sparse_bench)
+        from repro_torch.configs import get_config
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.launch import serve as lm_serve
+        from repro_torch.models import transformer as lm
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
@@ -525,11 +562,15 @@ class _Port:
         self.serve_topics, self.experiment = serve_topics, deleda_experiment
         self.ops = {"gossip_mix": mix_ops, "lda_gibbs": gibbs_ops,
                     "lda_l2r": l2r_ops, "lda_sparse": sparse_ops}
+        # the LM slice's kernel, counted apart from the LDA paths' four
+        self.flash_ops, self.flash_ref = flash_ops, flash_ref
+        self.lm, self.lm_serve, self.get_config = lm, lm_serve, get_config
+        self.flex = None      # compiled flex_attention, the K5 yardstick
 
         self.card = ""        # the card's name and power limit, for prints
 
     def zero_counts(self) -> None:
-        for op in self.ops.values():
+        for op in (*self.ops.values(), self.flash_ops):
             op.launches = 0
             op.launches_by_shape.clear()
 
@@ -1127,6 +1168,331 @@ def _trajectory_check(rt, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# LM serving (the port's fourth slice): gemma2-2b through K5
+# --------------------------------------------------------------------------
+
+def _visible(sq, sk, window, q_offset):
+    """Visible (query, key) pairs of one head, and the keys some query
+    sees (the causal mask and the window, keys below Sk)."""
+    rows = q_offset + np.arange(sq, dtype=np.int64)
+    lo = np.maximum(0, rows - window + 1)
+    hi = np.minimum(sk - 1, rows)
+    pairs = int(np.maximum(0, hi - lo + 1).sum())
+    keys = max(0, int(min(sk - 1, rows[-1]) - max(0, rows[0] - window + 1))
+               + 1)
+    return pairs, keys
+
+
+def _flash_bound(case, q_offset):
+    """Bytes: Q and O once, K and V rows some query sees once. Operations:
+    4 D per visible (query, key) pair and head, at the bf16 tensor-core
+    peak for bf16 inputs and the float32 peak for float32 ones."""
+    b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h", "hkv",
+                                               "d"))
+    pairs, keys = _visible(sq, sk, case["window"], q_offset)
+    elem = 2 if case["dtype"] == torch.bfloat16 else 4
+    bytes_moved = elem * (2 * b * sq * h * d + 2 * b * keys * hkv * d)
+    ops = 4 * b * h * pairs * d
+    peak = BF16_OPS_PER_S if elem == 2 else FP32_OPS_PER_S
+    return _bound(bytes_moved, ops, peak), pairs
+
+
+def _library_attention(rt, q, k, v, case, q_offset):
+    """One compiled ``flex_attention`` call of the same function (tanh
+    softcap ``score_mod``, causal + window ``mask_mod``), as a callable;
+    the offset and window ride in as tensors, so one compile serves every
+    offset of a shape."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if rt.flex is None:
+        rt.flex = torch.compile(flex_attention)
+    dev = q.device
+    off = torch.tensor(q_offset, device=dev)
+    win = torch.tensor(case["window"], device=dev)
+    cap = case["softcap"]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        return (qi + off >= ki) & (qi + off - ki < win)
+
+    mask = create_block_mask(mask_mod, None, None, case["sq"], case["sk"],
+                             device=dev)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    scale = case["scale"]
+
+    def call():
+        return rt.flex(qh, kh, vh, score_mod=score_mod, block_mask=mask,
+                       scale=scale, enable_gqa=True).transpose(1, 2)
+    return call
+
+
+def _flash_cases(rt):
+    """Every K5 shape the LM phase launches: serving's decode against the
+    cache (bf16), the f32 consistency check's forward and decode, and the
+    bf16 prefill at S=8192; local (window 4096) and global layers."""
+    cfg = rt.get_config(LM["arch"])
+    s_max = LM["prompt"] + LM["gen"]
+    base = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
+                softcap=cfg.attn_softcap, scale=cfg.query_scale)
+    cases = []
+    for kind, window in (("local", cfg.window),
+                         ("global", rt.flash_ops.GLOBAL_WINDOW)):
+        w = dict(base, window=window, kind=kind)
+        cases += [
+            dict(w, phase=f"decode_{kind}", b=LM["batch"], sq=1, sk=s_max,
+                 dtype=torch.bfloat16, tol=3e-2,
+                 offsets=(0, s_max // 2 - 1, s_max - 2)),
+            dict(w, phase=f"prefill_{kind}", b=1, sq=PREFILL_S,
+                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2, offsets=(0,)),
+            dict(w, phase=f"f32_forward_{kind}", b=LM["batch"],
+                 sq=LM["prompt"], sk=LM["prompt"], dtype=torch.float32,
+                 tol=2e-5, offsets=(0,)),
+            dict(w, phase=f"f32_decode_{kind}", b=LM["batch"], sq=1,
+                 sk=LM["prompt"], dtype=torch.float32, tol=2e-5,
+                 offsets=(0, LM["prompt"] // 2 - 1, LM["prompt"] - 1))]
+    return cases
+
+
+def _hold_flash(rt, dev, case, seed):
+    """K5 against its plain version at one shape and each held offset,
+    with the times: the kernel, the plain version, the bound and the
+    library call at the middle offset (the mean work of a run whose
+    offsets are spread evenly; the first and last are timed too)."""
+    b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h", "hkv",
+                                               "d"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(case["dtype"])
+    k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
+        case["dtype"])
+    v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
+        case["dtype"])
+    kw = dict(window=case["window"], softcap=case["softcap"],
+              scale=case["scale"])
+    flash, ref = rt.flash_ops.flash_attention, rt.flash_ref.attention_ref
+
+    def heads(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], d)
+
+    def plain(off):
+        out = ref(heads(q), heads(k), heads(v), q_offset=off, **kw)
+        return out.reshape(b, h, sq, d).transpose(1, 2)
+
+    err, by_offset = 0.0, {}
+    mid = case["offsets"][len(case["offsets"]) // 2]
+    for off in case["offsets"]:
+        ms, got = _time_ms(lambda: flash(q, k, v, q_offset=off, **kw),
+                           reps=5 if sq > 1 else 9, device_only=True)
+        want = plain(off)
+        e = float((got.float() - want.float()).abs().max())
+        if not (e <= case["tol"] and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {case['phase']} q_offset={off}"
+                                 f": max_abs_err {e} > {case['tol']}")
+        err = max(err, e)
+        by_offset[off] = ms
+    plain_ms, _ = _time_ms(lambda: plain(mid), reps=2, warmup=1)
+    (bound, by), pairs = _flash_bound(case, mid)
+    lib_ms, lib_err = None, None
+    try:
+        call = _library_attention(rt, q, k, v, case, mid)
+        lib_ms, out = _time_ms(call, reps=5, warmup=2, device_only=True)
+        lib_err = float((out.float() - plain(mid).float()).abs().max())
+        library = f"{lib_ms:.4f} ms (max_abs_err {lib_err:.3g})"
+    except Exception as exc:          # recorded, not fatal: a yardstick
+        lib_ms = None
+        library = f"none: {type(exc).__name__}: {str(exc)[:200]}"
+    shape = (f"B={b} Sq={sq} Sk={sk} H={h}/{hkv} D={d} "
+             f"{'bf16' if case['dtype'] == torch.bfloat16 else 'f32'} "
+             f"{case['kind']} softcap {case['softcap']}")
+    print(f"flash_attention vs plain at {shape}, q_offset "
+          f"{list(case['offsets'])}: max_abs_err {err:.3g} (tol "
+          f"{case['tol']}); {by_offset[mid]:.4f} ms at offset {mid} (all "
+          f"{ {o: round(t, 4) for o, t in by_offset.items()} }), plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, library "
+          f"{library} | {rt.card}", flush=True)
+    key = rt.flash_ops.shape_key(q, k, case["window"], case["softcap"])
+    return dict(name="flash_attention", key=key, shape=shape,
+                phase=case["phase"], ms=by_offset[mid],
+                ms_by_offset=by_offset, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, visible_pairs_per_head=pairs,
+                library_ms=lib_ms, library=library,
+                library_max_abs_err=lib_err, max_abs_err=err,
+                tol=case["tol"], launches=0)
+
+
+def _lm_counts(rt, rows, where, want):
+    """This run's K5 launches by shape onto the held rows, checked
+    against ``want`` (launches per phase); no LDA kernel may launch."""
+    if any(rt.counts().values()):
+        raise AssertionError(f"{where}: an LDA kernel launched: "
+                             f"{rt.counts()}")
+    by_key = {r["key"]: r for r in rows}
+    got = {}
+    for key, n in rt.flash_ops.launches_by_shape.items():
+        row = by_key.get(key)
+        if row is None:
+            raise AssertionError(f"{where}: flash_attention launched {n} "
+                                 f"times at {key}, a shape no row holds")
+        row["launches"] += n
+        got[row["phase"]] = n
+    if rt.flash_ops.launches != sum(got.values()) or got != want:
+        raise AssertionError(f"{where}: launches by shape {got}, want "
+                             f"{want}")
+    print(f"{where}: flash_attention launches by shape {got}", flush=True)
+
+
+def _profile_decode(rt, cfg, params, dev, steps=8):
+    """``torch.profiler`` over ``steps`` bf16 decode steps at serving's
+    shape (a fresh cache filled to the prompt first): the card's idle
+    share over the window, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s0 = LM["batch"], LM["prompt"]
+    caches = rt.lm.init_caches(cfg, b, s0 + LM["gen"], dev)
+    tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    for i in range(s0):
+        caches = rt.lm.decode_step(cfg, params, tok, caches, i).caches
+
+    def window():
+        for i in range(s0, s0 + steps):
+            rt.lm.decode_step(cfg, params, tok, caches, i)
+
+    plain_wall, _ = _seconds(window)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _seconds(window)
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"steps": steps, "wall_ms_per_step": 1e3 * plain_wall / steps,
+           "profiled_wall_ms_per_step": 1e3 * wall / steps,
+           "device_busy_ms_per_step": busy_ms / steps,
+           "device_idle_share": 1.0 - busy_ms / (1e3 * plain_wall),
+           "device_entries_per_step": sum(e.count for e in on_dev) / steps,
+           "top_device_ms_per_step": [
+               [e.key[:80], e.self_device_time_total / 1e3 / steps,
+                e.count / steps] for e in top]}
+    print(f"profile, gemma2-2b decode B={b} at positions {s0}..."
+          f"{s0 + steps - 1}: {json.dumps(out)} | {rt.card}", flush=True)
+    return out
+
+
+@torch.no_grad()
+def _drive_lm(rt, dev):
+    """The LM phase: K5 held at every shape first; then serving through
+    ``launch.serve.main`` (counted), the float32 forward/decode
+    consistency at full width (counted), the bf16 prefill at S=8192
+    (counted) and a profiled window of decode steps. Returns (rows,
+    the ``lm_serving`` numbers)."""
+    cfg = rt.get_config(LM["arch"])
+    cases = _flash_cases(rt)
+    rows = [_hold_flash(rt, dev, c, 90 + i) for i, c in enumerate(cases)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    per_layer = {kind: sum(1 for i in range(cfg.n_layers)
+                           if (i % 2 == 0) == (kind == "local"))
+                 for kind in ("local", "global")}
+    steps = LM["prompt"] + LM["gen"] - 1
+
+    # serving through the entry point a user calls
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    served = rt.lm_serve.main(LM_ARGS)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    if rt.flash_ops.launches != cfg.n_layers * steps:
+        raise AssertionError(f"serving: {rt.flash_ops.launches} K5 launches"
+                             f", want {cfg.n_layers} x {steps}")
+    _lm_counts(rt, rows, "lm serving", {f"decode_{k}": n * steps
+                                        for k, n in per_layer.items()})
+    tokens = served["tokens"]
+    if (tuple(tokens.shape) != (LM["batch"], steps + 1)
+            or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"served tokens {tuple(tokens.shape)} out of "
+                             f"shape or vocabulary")
+    torch.cuda.empty_cache()
+
+    # float32 consistency at full width: forward against teacher-forced
+    # decode_step (tests/test_decode_consistency.py's check, rel < 2e-3)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = rt.lm.init_decoder_lm(
+        cfg32, torch.Generator(device=dev).manual_seed(1))
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, s0 = LM["batch"], LM["prompt"]
+    toks = torch.randint(0, cfg.vocab_size, (b, s0), generator=g, device=dev)
+    rt.zero_counts()
+    full = rt.lm.forward(cfg32, params, toks).logits
+    caches = rt.lm.init_caches(cfg32, b, s0, dev)
+    dec = torch.empty_like(full)
+    for t in range(s0):
+        out = rt.lm.decode_step(cfg32, params, toks[:, t:t + 1], caches, t)
+        caches = out.caches
+        dec[:, t] = out.logits[:, 0]
+    torch.cuda.synchronize()
+    _lm_counts(rt, rows, "f32 consistency",
+               {**{f"f32_forward_{k}": n for k, n in per_layer.items()},
+                **{f"f32_decode_{k}": n * s0 for k, n in per_layer.items()}})
+    rel = float((dec - full).abs().max() / (full.abs().max() + 1e-9))
+    if not (rel < 2e-3 and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"f32 decode vs forward at full width: rel "
+                             f"{rel} (limit 2e-3)")
+    print(f"gemma2-2b f32 forward vs teacher-forced decode_step [{b}, {s0}]:"
+          f" rel max err {rel:.3g} (limit 2e-3) | {rt.card}", flush=True)
+    del params, caches, full, dec, out
+    torch.cuda.empty_cache()
+
+    # bf16 prefill at S=8192 through forward, and a profiled decode window
+    params = rt.lm.init_decoder_lm(
+        cfg, torch.Generator(device=dev).manual_seed(LM["seed"]))
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_S), generator=g,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    prefill_s, out = _seconds(lambda: rt.lm.forward(cfg, params, toks))
+    prefill_peak = torch.cuda.max_memory_allocated()
+    _lm_counts(rt, rows, f"prefill S={PREFILL_S}",
+               {f"prefill_{k}": n for k, n in per_layer.items()})
+    if (tuple(out.logits.shape) != (1, PREFILL_S, cfg.vocab_size)
+            or not bool(torch.isfinite(out.logits).all())):
+        raise AssertionError("prefill logits misshapen or not finite")
+    del out
+    torch.cuda.empty_cache()
+    k5_prefill_ms = sum(r["ms"] * r["launches"] for r in rows
+                        if r["phase"].startswith("prefill"))
+    print(f"gemma2-2b prefill B=1 S={PREFILL_S} bf16: {prefill_s:.3f} s "
+          f"(K5 {k5_prefill_ms:.1f} ms of it), peak "
+          f"{prefill_peak / 1e9:.2f} GB | {rt.card}", flush=True)
+    profile = _profile_decode(rt, cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    k5_decode_ms = sum(r["ms"] * r["launches"] for r in rows
+                       if r["phase"].startswith("decode"))
+    lm = {"arch": cfg.name, "n_params": cfg.n_params(),
+          "batch": LM["batch"], "prompt_len": LM["prompt"],
+          "gen": LM["gen"], "decode_steps": steps,
+          "prefill_s": served["prefill_sec"],
+          "decode_s": served["decode_sec"],
+          "decode_tok_per_s": served["decode_tok_per_sec"],
+          "serve_peak_mem_gb": serve_peak / 1e9,
+          "k5_ms_in_serving": k5_decode_ms,
+          "k5_launches_in_serving": cfg.n_layers * steps,
+          "f32_decode_vs_forward_rel": rel,
+          "prefill_8192_s": prefill_s,
+          "prefill_8192_k5_ms": k5_prefill_ms,
+          "prefill_8192_peak_mem_gb": prefill_peak / 1e9,
+          "decode_profile": profile, "card": rt.card}
+    print(f"gemma2-2b serving B={LM['batch']} prompt {LM['prompt']} gen "
+          f"{LM['gen']}: prefill {lm['prefill_s']:.3f} s, decode "
+          f"{lm['decode_s']:.3f} s = {lm['decode_tok_per_s']:.1f} tok/s, "
+          f"peak {lm['serve_peak_mem_gb']:.2f} GB | {rt.card}", flush=True)
+    return rows, lm
+
+
 def _kernel_line(name, route, source, replaces, rows, node_err):
     """One kernel's entry: totals, the most launched shape, every shape."""
     top = max(rows, key=lambda r: r["launches"])
@@ -1164,6 +1530,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     rt = _Port()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1238,7 +1607,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     b_rows, bench = _drive_sparse_bench(rt, dev)
     torch.cuda.empty_cache()
-    all_rows = rows + d_rows + z_rows + b_rows
+
+    # phase 7: the LM slice, gemma2-2b served through K5
+    lm_rows, lm = _drive_lm(rt, dev)
+    torch.cuda.empty_cache()
+    all_rows = rows + d_rows + z_rows + b_rows + lm_rows
     for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
@@ -1252,6 +1625,11 @@ def main() -> int:
         mine = [r for r in all_rows if r["name"] == name]
         lines.append(_kernel_line(name, "cuda", src, tpu, mine,
                                   node_err[name]))
+    k5 = _kernel_line("flash_attention", "cuda", FLASH_SRC, FLASH_TPU,
+                      lm_rows, 0.0)
+    top = max(lm_rows, key=lambda r: r["launches"])
+    k5.update(library_ms=top["library_ms"], library=top["library"])
+    lines.append(k5)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"e2e": {
         "goem_steps_per_s": closed["train_steps_per_s"],
@@ -1264,6 +1642,7 @@ def main() -> int:
     print(json.dumps({"unique_layout": {"full_width": zipf,
                                         "sparse_bench": bench,
                                         "card": card}}))
+    print(json.dumps({"lm_serving": lm}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

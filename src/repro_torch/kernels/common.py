@@ -8,7 +8,10 @@ into a shared library with a plain C interface under
 runs at first use; a library whose name carries the hash of its sources
 and flags is reused. ``nvcc`` runs with ``--fmad=false``: a fused
 multiply-add rounds once where the plain torch versions round twice, and
-the kernels must make the same draws as those versions.
+the LDA kernels must make the same draws as those versions. The flag
+only stops the compiler from fusing a multiply and an add; a kernel
+whose result is held to a tolerance (``flash_attention``) writes its
+``fmaf`` calls out.
 
 Every C entry point launches on the caller's stream and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -31,7 +34,8 @@ __all__ = ["BUILD_DIR", "KERNEL_NAMES", "build", "build_all", "load",
 
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
-KERNEL_NAMES = ("gossip_mix", "lda_gibbs", "lda_l2r", "lda_sparse")
+KERNEL_NAMES = ("gossip_mix", "lda_gibbs", "lda_l2r", "lda_sparse",
+                "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,5 @@
+"""CUDA kernel for the attention forward pass (GQA, window, softcap)."""
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+__all__ = ["flash_attention"]

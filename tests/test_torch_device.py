@@ -254,3 +254,76 @@ def test_count_weighted_l2r_matches_plain_on_card(cuda_device):
     want = evaluation.l2r_position_scores(kd, bw, cf, 0.5, p,
                                           count_weighted=True)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_attention_on_a_non_cpu_device_is_never_served_by_plain_code():
+    """flash_attention, like the other wrappers, refuses a tensor that is
+    neither on the CPU nor on a CUDA device instead of falling back."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q = torch.empty(1, 4, 2, 16, device="meta")
+    k = torch.empty(1, 4, 1, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_ops.flash_attention(q, k, k)
+
+
+# the reference kernel test's seven cases (tests/test_kernels.py), then
+# gemma2-2b's head: D=256, GQA 8/4, window and softcap, in bf16
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, {}, torch.float32, 2e-5),
+    (1, 100, 100, 2, 2, 32, {}, torch.float32, 2e-5),
+    (1, 64, 64, 2, 2, 16, {}, torch.float32, 2e-5),
+    (1, 192, 192, 4, 1, 64, {"window": 64}, torch.float32, 2e-5),
+    (1, 128, 128, 2, 2, 64, {"softcap": 30.0}, torch.float32, 2e-5),
+    (2, 1, 192, 4, 2, 64, {"q_offset": 191}, torch.float32, 2e-5),
+    (1, 128, 128, 4, 4, 32, {"window": 32, "softcap": 50.0}, torch.float32,
+     2e-5),
+    (2, 300, 300, 8, 4, 256, {"window": 128, "softcap": 50.0},
+     torch.bfloat16, 3e-2),
+    (4, 1, 192, 8, 4, 256, {"window": 64, "softcap": 50.0,
+                            "q_offset": 150}, torch.bfloat16, 3e-2),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"flash{i}" for i in range(len(FLASH_CASES))])
+def test_flash_attention_matches_plain_on_card(cuda_device, case):
+    """K5 against its plain version, one launch counted under its shape."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, sk, h, hkv, d, kw, dtype, atol = case
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda_device, dtype)
+               for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    key = flash_ops.shape_key(q, k, kw.get("window"), kw.get("softcap"))
+    before = flash_ops.launches_by_shape.get(key, 0)
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_shape[key] == before + 1
+    want = attention_ref(*(x.transpose(1, 2).reshape(-1, x.shape[1], d)
+                           for x in (q, k, v)), **kw)
+    want = want.reshape(b, h, sq, d).transpose(1, 2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def test_flash_attention_refuses_bad_launches_on_card(cuda_device):
+    """A CPU tensor beside CUDA ones, or a non-contiguous CUDA tensor,
+    raises; nothing is launched."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q = torch.randn(1, 8, 2, 32, device=cuda_device)
+    k = torch.randn(1, 8, 2, 32, device=cuda_device)
+    before = flash_ops.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(q[..., :24].contiguous(),
+                                  k[..., :24].contiguous(),
+                                  k[..., :24].contiguous())
+    assert flash_ops.launches == before
