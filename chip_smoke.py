@@ -41,7 +41,9 @@
    - the paper's experiment, ``launch.deleda_experiment.run_experiment``
      at ``PAPER`` (n=50, K=5, V=100, 400 steps, G-OEM and {async, sync} x
      {complete, WS}): the Fig. 1a/1b trajectories, the share of records
-     inside the eq. (3) envelope, rounds/s per run and claims C1-C3;
+     inside the eq. (3) envelope, rounds/s per run and claims C1-C3; its
+     LP* against the LP* of the same seed's corpus on the CPU (rel 1e-4:
+     a corpus is drawn on the CPU on every device);
    - full width, ``core.deleda.run_deleda`` at K=100, V=50,000, L=64,
      n=50, batch 20: 40 rounds of sync matchings on the complete graph
      and 40 async edge events on WS, held-out LP every 20 rounds (3 probe
@@ -74,12 +76,19 @@
 6. The LM slice (the port's fourth): gemma2-2b at full width (26 layers, d=2304,
    vocab 256,000, random bf16 weights from seed 0). ``flash_attention``
    (K5) is held against its plain version at every shape the phase
-   launches (bf16 within 3e-2, float32 within 2e-5) and timed beside its
+   launches (bf16 within 3e-2, float32 within 2e-5; and each output
+   row's error within ``ROW_TOL`` of that row's size, a limit shown to
+   catch a dropped key split or tile, or inputs rounded to bf16, by a
+   control at the long shapes) and timed beside its
    bound and a compiled ``flex_attention`` call (the library yardstick,
    "none" with its error if it does not run): serving's decode against
    the cache (B=4, Sq=1, S_max=192) at q_offset 0, 95 and 190, the
    float32 check's forward [4, 128] and decode (S_max=128), the bf16
-   prefill at S=8192; each local (window 4096) and global. Then, with
+   prefill at S=8192, the bf16 decode against an S=8192 cache at its
+   last 8 positions; each local (window 4096) and global. Each shape
+   prints the kernel variant it takes ("wgmma" for the bf16 prefill,
+   "decode" for every Sq=1 launch, "fma" for the float32 forward), and
+   every counted run below checks the launches by variant too. Then, with
    the counters set to 0 before each and read after:
    ``launch.serve.main`` (``--arch gemma2_2b --full --batch 4
    --prompt-len 128 --gen 64``): 26 x 191 K5 launches, half local and
@@ -88,7 +97,10 @@
    the same prompt teacher-forced through ``decode_step`` (rel max error
    of the logits < 2e-3, ``tests/test_decode_consistency.py``'s bound).
    ``forward`` once at B=1, S=8192 in bf16 (26 launches): seconds and
-   peak memory. Then 8 decode steps under ``torch.profiler``.
+   peak memory, then once more under ``torch.profiler`` (device time by
+   kernel). 8 bf16 decode steps against an S=8192 cache of random
+   keys and values (26 x 8 launches, the keys split over blocks). Then 8
+   decode steps under ``torch.profiler``.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
    counted launches), one line each of serving, DELEDA, unique-layout
@@ -105,6 +117,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -162,7 +175,13 @@ LM_ARGS = ["--arch", LM["arch"], "--full", "--batch", str(LM["batch"]),
            "--prompt-len", str(LM["prompt"]), "--gen", str(LM["gen"]),
            "--seed", str(LM["seed"]), "--device", "cuda"]
 PREFILL_S = 8192
+LONG_STEPS = 8                 # decode steps against an S=8192 cache
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+# K5's row check: the RMS over D of the error of one output row (batch,
+# query, head) over the RMS of that row of the plain version. A bf16 row
+# carries two roundings of its values (under 4e-3); a 512-key split or a
+# 64-key tile dropped from 8,192 keys moves some row by over a fifth
+ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:90"
 
@@ -573,6 +592,7 @@ class _Port:
         for op in (*self.ops.values(), self.flash_ops):
             op.launches = 0
             op.launches_by_shape.clear()
+        self.flash_ops.launches_by_variant.clear()
 
     def counts(self) -> dict:
         return {name: op.launches for name, op in self.ops.items()}
@@ -716,9 +736,22 @@ def _drive_paper(rt, dev, rows):
     launches by shape go to ``rows`` and are checked against the rules."""
     p = rt.experiment.PAPER
     n, graph = p.corpus.n_nodes, rt.graph
+    # the same seed's corpus and LP* on the CPU (the plain path): a corpus
+    # is drawn on the CPU on every device, so the two LP* agree
+    cpu = torch.device("cpu")
+    corpus_cpu = rt.data.make_corpus(p.lda, rt.tf3.key(0, cpu), p.corpus)
+    _, lp_cpu = rt.experiment.make_beta_evaluator(p, corpus_cpu, 0)
     rt.zero_counts()
     res = rt.experiment.run_experiment(p, seed=0, device=dev)
     torch.cuda.synchronize()
+    lp_rel = abs(res["lp_star"] - lp_cpu) / abs(lp_cpu)
+    print(f"paper-scale LP* {res['lp_star']:.6f} on the card, "
+          f"{lp_cpu:.6f} on the CPU from the same seed (rel {lp_rel:.3g}, "
+          f"limit 1e-4; the CPU re-anchor run gave 35.686) | {rt.card}",
+          flush=True)
+    if not lp_rel < 1e-4:
+        raise AssertionError(f"paper-scale LP* differs between the card "
+                             f"and the CPU: rel {lp_rel}")
     got = _tally(rt, rows, "paper")
     n_rec = p.n_steps // p.record_every
     want = {"paper_goem": p.n_steps, "paper_eval": 1 + n_rec,
@@ -744,6 +777,7 @@ def _drive_paper(rt, dev, rows):
     print(f"(paper scale on {rt.card})", flush=True)
     summary = {k: res[k] for k in ("lp_star", "lambda2", "iterations",
                                    "claims")}
+    summary["lp_star_cpu"] = lp_cpu
     summary["runs"] = {
         name: {k: run[k] for k in ("rel_perplexity", "beta_distance",
                                    "rounds_per_s", "wall_sec",
@@ -1231,8 +1265,11 @@ def _library_attention(rt, q, k, v, case, q_offset):
 
 def _flash_cases(rt):
     """Every K5 shape the LM phase launches: serving's decode against the
-    cache (bf16), the f32 consistency check's forward and decode, and the
-    bf16 prefill at S=8192; local (window 4096) and global layers."""
+    cache (bf16), the f32 consistency check's forward and decode, the
+    bf16 prefill at S=8192 and the bf16 decode against an S=8192 cache;
+    local (window 4096) and global layers. Each names the kernel variant
+    it must take: "wgmma" for the bf16 prefill at D=256, "decode" for
+    every Sq=1 launch, "fma" for the float32 forward."""
     cfg = rt.get_config(LM["arch"])
     s_max = LM["prompt"] + LM["gen"]
     base = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
@@ -1243,26 +1280,52 @@ def _flash_cases(rt):
         w = dict(base, window=window, kind=kind)
         cases += [
             dict(w, phase=f"decode_{kind}", b=LM["batch"], sq=1, sk=s_max,
-                 dtype=torch.bfloat16, tol=3e-2,
+                 dtype=torch.bfloat16, tol=3e-2, variant="decode",
                  offsets=(0, s_max // 2 - 1, s_max - 2)),
             dict(w, phase=f"prefill_{kind}", b=1, sq=PREFILL_S,
-                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2, offsets=(0,)),
+                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
+                 variant="wgmma", offsets=(0,), control="tile"),
             dict(w, phase=f"f32_forward_{kind}", b=LM["batch"],
                  sq=LM["prompt"], sk=LM["prompt"], dtype=torch.float32,
-                 tol=2e-5, offsets=(0,)),
+                 tol=2e-5, variant="fma", offsets=(0,), control="bf16"),
             dict(w, phase=f"f32_decode_{kind}", b=LM["batch"], sq=1,
                  sk=LM["prompt"], dtype=torch.float32, tol=2e-5,
-                 offsets=(0, LM["prompt"] // 2 - 1, LM["prompt"] - 1))]
+                 variant="decode", control="bf16",
+                 offsets=(0, LM["prompt"] // 2 - 1, LM["prompt"] - 1)),
+            dict(w, phase=f"decode_long_{kind}", b=LM["batch"], sq=1,
+                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
+                 variant="decode", control="split",
+                 offsets=(PREFILL_S - LONG_STEPS,
+                          PREFILL_S - LONG_STEPS // 2 - 1, PREFILL_S - 1))]
     return cases
+
+
+def _row_err(got, want):
+    """The largest relative error of one output row (batch, query, head):
+    the RMS over D of ``got - want`` over the RMS of that row of ``want``
+    (a row of zeros counts its error over 1e-6)."""
+    g, w = got.double(), want.double()
+    err = (g - w).pow(2).mean(-1).sqrt()
+    return float((err / w.pow(2).mean(-1).sqrt().clamp_min(1e-6)).max())
 
 
 def _hold_flash(rt, dev, case, seed):
     """K5 against its plain version at one shape and each held offset,
     with the times: the kernel, the plain version, the bound and the
     library call at the middle offset (the mean work of a run whose
-    offsets are spread evenly; the first and last are timed too)."""
+    offsets are spread evenly; the first and last are timed too).
+
+    Every output row is held to ``ROW_TOL`` of its own size, and a case
+    that names a control shows that this limit catches what it should,
+    at its last offset: "split" the plain version without the first key
+    split of the last query row, "tile" without its first 64-key tile,
+    "bf16" on inputs rounded to bf16 (each must exceed the limit)."""
     b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h", "hkv",
                                                "d"))
+    var = rt.flash_ops.variant(case["dtype"], sq, d, h // hkv)
+    if var != case["variant"]:
+        raise AssertionError(f"{case['phase']}: K5 takes variant {var}, "
+                             f"want {case['variant']}")
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, sq, h, d), generator=g, device=dev).to(case["dtype"])
     k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
@@ -1276,11 +1339,13 @@ def _hold_flash(rt, dev, case, seed):
     def heads(x):
         return x.transpose(1, 2).reshape(-1, x.shape[1], d)
 
-    def plain(off):
-        out = ref(heads(q), heads(k), heads(v), q_offset=off, **kw)
+    def plain(off, qkv=(q, k, v), window=case["window"]):
+        out = ref(*(heads(x) for x in qkv), q_offset=off,
+                  **dict(kw, window=window))
         return out.reshape(b, h, sq, d).transpose(1, 2)
 
-    err, by_offset = 0.0, {}
+    row_tol = ROW_TOL[case["dtype"]]
+    err, row_err, by_offset = 0.0, 0.0, {}
     mid = case["offsets"][len(case["offsets"]) // 2]
     for off in case["offsets"]:
         ms, got = _time_ms(lambda: flash(q, k, v, q_offset=off, **kw),
@@ -1291,8 +1356,30 @@ def _hold_flash(rt, dev, case, seed):
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {case['phase']} q_offset={off}"
                                  f": max_abs_err {e} > {case['tol']}")
-        err = max(err, e)
+        r = _row_err(got, want)
+        if not r <= row_tol:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {case['phase']} q_offset={off}"
+                                 f": row error {r} > {row_tol}")
+        err, row_err = max(err, e), max(row_err, r)
         by_offset[off] = ms
+    control, ctl_err = case.get("control"), None
+    if control is not None:
+        last = case["offsets"][-1]
+        seen = min(case["window"], last + sq)   # keys the last row sees
+        if control == "bf16":
+            ctl = plain(last, tuple(x.to(torch.bfloat16).to(case["dtype"])
+                                    for x in (q, k, v)))
+        else:
+            splits = rt.flash_ops.n_splits(sq, sk, True, case["window"], last)
+            drop = (-(-_visible(sq, sk, case["window"], last)[1] // splits)
+                    if control == "split" else 64)
+            ctl = plain(last, window=seen - drop)
+        ctl_err = _row_err(ctl, plain(last))
+        if not ctl_err > row_tol:
+            raise AssertionError(f"{case['phase']}: the row check misses "
+                                 f"the {control} control ({ctl_err} <= "
+                                 f"{row_tol})")
     plain_ms, _ = _time_ms(lambda: plain(mid), reps=2, warmup=1)
     (bound, by), pairs = _flash_bound(case, mid)
     lib_ms, lib_err = None, None
@@ -1307,25 +1394,29 @@ def _hold_flash(rt, dev, case, seed):
     shape = (f"B={b} Sq={sq} Sk={sk} H={h}/{hkv} D={d} "
              f"{'bf16' if case['dtype'] == torch.bfloat16 else 'f32'} "
              f"{case['kind']} softcap {case['softcap']}")
-    print(f"flash_attention vs plain at {shape}, q_offset "
+    print(f"flash_attention [{var}] vs plain at {shape}, q_offset "
           f"{list(case['offsets'])}: max_abs_err {err:.3g} (tol "
-          f"{case['tol']}); {by_offset[mid]:.4f} ms at offset {mid} (all "
+          f"{case['tol']}), row error {row_err:.3g} (limit {row_tol}"
+          f"{'' if control is None else f'; {control} control {ctl_err:.3g}'}"
+          f"); {by_offset[mid]:.4f} ms at offset {mid} (all "
           f"{ {o: round(t, 4) for o, t in by_offset.items()} }), plain "
           f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, library "
           f"{library} | {rt.card}", flush=True)
     key = rt.flash_ops.shape_key(q, k, case["window"], case["softcap"])
     return dict(name="flash_attention", key=key, shape=shape,
-                phase=case["phase"], ms=by_offset[mid],
+                phase=case["phase"], variant=var, ms=by_offset[mid],
                 ms_by_offset=by_offset, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, visible_pairs_per_head=pairs,
                 library_ms=lib_ms, library=library,
                 library_max_abs_err=lib_err, max_abs_err=err,
-                tol=case["tol"], launches=0)
+                tol=case["tol"], row_err=row_err, row_tol=row_tol,
+                control=control, control_row_err=ctl_err, launches=0)
 
 
 def _lm_counts(rt, rows, where, want):
     """This run's K5 launches by shape onto the held rows, checked
-    against ``want`` (launches per phase); no LDA kernel may launch."""
+    against ``want`` (launches per phase), and by variant against the
+    variant each held shape names; no LDA kernel may launch."""
     if any(rt.counts().values()):
         raise AssertionError(f"{where}: an LDA kernel launched: "
                              f"{rt.counts()}")
@@ -1341,7 +1432,16 @@ def _lm_counts(rt, rows, where, want):
     if rt.flash_ops.launches != sum(got.values()) or got != want:
         raise AssertionError(f"{where}: launches by shape {got}, want "
                              f"{want}")
-    print(f"{where}: flash_attention launches by shape {got}", flush=True)
+    want_var = {}
+    for key, n in rt.flash_ops.launches_by_shape.items():
+        var = by_key[key]["variant"]
+        want_var[var] = want_var.get(var, 0) + n
+    if rt.flash_ops.launches_by_variant != want_var:
+        raise AssertionError(f"{where}: launches by variant "
+                             f"{rt.flash_ops.launches_by_variant}, want "
+                             f"{want_var}")
+    print(f"{where}: flash_attention launches by shape {got}, by variant "
+          f"{want_var}", flush=True)
 
 
 def _profile_decode(rt, cfg, params, dev, steps=8):
@@ -1381,6 +1481,28 @@ def _profile_decode(rt, cfg, params, dev, steps=8):
     return out
 
 
+def _profile_prefill(rt, cfg, params, toks):
+    """``torch.profiler`` over one bf16 ``forward`` at the prefill shape:
+    the card's busy time and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, out = _seconds(lambda: rt.lm.forward(cfg, params, toks))
+    del out
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"profiled_wall_s": wall, "device_busy_ms": busy_ms,
+           "device_entries": sum(e.count for e in on_dev),
+           "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
+                              e.count] for e in top]}
+    print(f"profile, gemma2-2b prefill B=1 S={PREFILL_S}: "
+          f"{json.dumps(res)} | {rt.card}", flush=True)
+    return res
+
+
 @torch.no_grad()
 def _drive_lm(rt, dev):
     """The LM phase: K5 held at every shape first; then serving through
@@ -1404,6 +1526,7 @@ def _drive_lm(rt, dev):
     served = rt.lm_serve.main(LM_ARGS)
     torch.cuda.synchronize()
     serve_peak = torch.cuda.max_memory_allocated()
+    del served["params"]
     if rt.flash_ops.launches != cfg.n_layers * steps:
         raise AssertionError(f"serving: {rt.flash_ops.launches} K5 launches"
                              f", want {cfg.n_layers} x {steps}")
@@ -1461,17 +1584,51 @@ def _drive_lm(rt, dev):
         raise AssertionError("prefill logits misshapen or not finite")
     del out
     torch.cuda.empty_cache()
+    prefill_profile = _profile_prefill(rt, cfg, params, toks)
+    torch.cuda.empty_cache()
     k5_prefill_ms = sum(r["ms"] * r["launches"] for r in rows
                         if r["phase"].startswith("prefill"))
     print(f"gemma2-2b prefill B=1 S={PREFILL_S} bf16: {prefill_s:.3f} s "
           f"(K5 {k5_prefill_ms:.1f} ms of it), peak "
           f"{prefill_peak / 1e9:.2f} GB | {rt.card}", flush=True)
+
+    # bf16 decode against a long cache: LONG_STEPS steps at the last
+    # positions of an S=8192 cache filled with random keys and values (the
+    # window bites on local layers; K5 splits the keys over blocks)
+    caches = rt.lm.init_caches(cfg, LM["batch"], PREFILL_S, dev)
+    for c in caches:
+        c.k.normal_(generator=g)
+        c.v.normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab_size, (LM["batch"], 1), generator=g,
+                        device=dev)
+
+    def long_decode():
+        out = None
+        for i in range(PREFILL_S - LONG_STEPS, PREFILL_S):
+            out = rt.lm.decode_step(cfg, params, tok, caches, i)
+        return out
+    rt.zero_counts()
+    long_s, out = _seconds(long_decode)
+    _lm_counts(rt, rows, f"decode against an S={PREFILL_S} cache",
+               {f"decode_long_{k}": n * LONG_STEPS
+                for k, n in per_layer.items()})
+    if (tuple(out.logits.shape) != (LM["batch"], 1, cfg.vocab_size)
+            or not bool(torch.isfinite(out.logits).all())):
+        raise AssertionError("long-cache decode logits misshapen or not "
+                             "finite")
+    del caches, out
+    torch.cuda.empty_cache()
+    k5_long_ms = sum(r["ms"] * r["launches"] for r in rows
+                     if r["phase"].startswith("decode_long"))
+    print(f"gemma2-2b decode B={LM['batch']} against an S={PREFILL_S} "
+          f"cache: {1e3 * long_s / LONG_STEPS:.2f} ms a step (K5 "
+          f"{k5_long_ms / LONG_STEPS:.3f} ms of it) | {rt.card}", flush=True)
     profile = _profile_decode(rt, cfg, params, dev)
     del params
     torch.cuda.empty_cache()
 
     k5_decode_ms = sum(r["ms"] * r["launches"] for r in rows
-                       if r["phase"].startswith("decode"))
+                       if r["phase"] in ("decode_local", "decode_global"))
     lm = {"arch": cfg.name, "n_params": cfg.n_params(),
           "batch": LM["batch"], "prompt_len": LM["prompt"],
           "gen": LM["gen"], "decode_steps": steps,
@@ -1485,6 +1642,10 @@ def _drive_lm(rt, dev):
           "prefill_8192_s": prefill_s,
           "prefill_8192_k5_ms": k5_prefill_ms,
           "prefill_8192_peak_mem_gb": prefill_peak / 1e9,
+          "prefill_8192_profile": prefill_profile,
+          "long_cache_decode_ms_per_step": 1e3 * long_s / LONG_STEPS,
+          "long_cache_k5_ms_per_step": k5_long_ms / LONG_STEPS,
+          "init_s": served["init_sec"],
           "decode_profile": profile, "card": rt.card}
     print(f"gemma2-2b serving B={LM['batch']} prompt {LM['prompt']} gen "
           f"{LM['gen']}: prefill {lm['prefill_s']:.3f} s, decode "
@@ -1524,6 +1685,31 @@ def _e2e(summary, offered):
                                 for q, v in lat.items()}}
 
 
+def _ptxas_lines(log):
+    """One line per compiled kernel of nvcc's ``-Xptxas -v`` output (its
+    template instance, registers and spills), and ptxas's performance
+    warnings (C75xx)."""
+    out, entry, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = re.search(r"([A-Za-z]+(?:_[A-Za-z]+)*_kernel)I(\w*?)E+v",
+                           m.group(1))
+            args = ([] if fn is None else
+                    (["bf16"] if "bfloat16" in fn.group(2) else
+                     ["f32"] if fn.group(2).startswith("f") else [])
+                    + re.findall(r"Li(\d+)", fn.group(2)))
+            entry = (m.group(1) if fn is None
+                     else f"{fn.group(1)}<{', '.join(args)}>")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "C75" in line:
+            out.append(line.strip())
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1545,12 +1731,10 @@ def main() -> int:
     logs = rt.common.build_all()
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in _ptxas_lines(log):
+            print(f"  {name}: {line}")
     print(f"kernels built in {build_s:.1f}s: "
           f"{', '.join(rt.common.KERNEL_NAMES)}", flush=True)
-
     # phase 3: every kernel against its plain version, node shape first
     node_len = ("poisson", 2, NODE["l"])
     node_err = {

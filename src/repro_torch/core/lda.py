@@ -7,8 +7,10 @@ normalisation of the smoothed statistic,
 ``beta[k] = (s[k] + tau) / sum_v (s[k] + tau)``. alpha stays fixed.
 
 Random draws take the port's threefry keys (:mod:`.threefry`). The
-Dirichlet draws of the generative process use a ``torch.Generator``
-seeded from the key's words: the gamma sampler has no threefry replay.
+Dirichlet draws of the generative process use a CPU ``torch.Generator``
+seeded from the key's words (the gamma sampler has no threefry replay),
+and run on the CPU whatever the key's device: a generated corpus is a
+function of the key alone, and only its result moves to the device.
 """
 
 from __future__ import annotations
@@ -108,21 +110,25 @@ def log_eta_star(stats: torch.Tensor, tau: float = 1e-2,
 
 
 def generator_from_key(key: torch.Tensor) -> torch.Generator:
-    """A ``torch.Generator`` on the key's device, seeded by its two words."""
+    """A CPU ``torch.Generator`` seeded by the key's two words, on every
+    device: CPU and CUDA generators give different streams, so draws are
+    made on the CPU and their results moved."""
     words = key.reshape(-1, 2)[0].tolist()
-    gen = torch.Generator(device=key.device)
+    gen = torch.Generator()
     gen.manual_seed((int(words[0]) << 32) | int(words[1]))
     return gen
 
 
 def sample_topic_matrix(config: LDAConfig, key: torch.Tensor,
                         concentration: float = 0.1) -> torch.Tensor:
-    """Ground-truth topic matrix beta* ~ Dirichlet(concentration)^K."""
+    """Ground-truth topic matrix beta* ~ Dirichlet(concentration)^K,
+    drawn on the CPU and returned on the key's device."""
     conc = torch.full((config.n_topics, config.vocab_size), concentration,
-                      dtype=torch.float32, device=key.device)
+                      dtype=torch.float32)
     g = torch._standard_gamma(conc, generator=generator_from_key(key))
     g = torch.clamp(g, min=1e-30)
-    return (g / g.sum(dim=1, keepdim=True)).to(config.dtype)
+    beta = (g / g.sum(dim=1, keepdim=True)).to(config.dtype)
+    return beta.to(key.device)
 
 
 def _topic_cdf(beta: torch.Tensor) -> torch.Tensor:
@@ -159,20 +165,24 @@ def sample_documents(config: LDAConfig, gen: torch.Generator,
     """A batch of documents by the LDA generative process.
 
     lengths ``[D]``; returns (words ``[D, L]`` int64, mask ``[D, L]``
-    bool) with tokens past each length masked and set to 0.
+    bool) with tokens past each length masked and set to 0. ``gen`` is a
+    CPU generator (:func:`generator_from_key`): the draws run on the CPU,
+    from CPU copies of beta and the lengths, and the result lands on
+    beta's device.
     """
     d, k, l = lengths.shape[0], config.n_topics, config.doc_len_max
     dev = beta.device
+    beta, lengths = beta.cpu(), lengths.cpu()
     if alpha_vec is None:
-        alpha_vec = torch.full((k,), config.alpha, dtype=torch.float32,
-                               device=dev)
-    g = torch._standard_gamma(alpha_vec.expand(d, k).contiguous(),
+        alpha_vec = torch.full((k,), config.alpha, dtype=torch.float32)
+    g = torch._standard_gamma(alpha_vec.cpu().expand(d, k).contiguous(),
                               generator=gen)
     theta = g / g.sum(dim=-1, keepdim=True)
     z = torch.multinomial(theta, l, replacement=True, generator=gen)
     words = draw_words(beta, z, gen)
-    mask = torch.arange(l, device=dev)[None, :] < lengths[:, None]
-    return torch.where(mask, words, torch.zeros_like(words)), mask
+    mask = torch.arange(l)[None, :] < lengths[:, None]
+    words = torch.where(mask, words, torch.zeros_like(words))
+    return words.to(dev), mask.to(dev)
 
 
 def sample_document(config: LDAConfig, key: torch.Tensor,

@@ -18,6 +18,9 @@ Poisson ones. A corpus with more than 5% of its lengths clipped warns.
 The reference's gamma and Dirichlet draws cannot be replayed bit for
 bit, so a port corpus is not the reference corpus for the same seed;
 parity tests hand the reference's corpus arrays to the port instead.
+The port's corpus is a function of its key alone: it is drawn and
+shaped on the CPU and moved to the key's device at the end, so a CUDA
+run and a CPU run of one seed train on the same corpus.
 Not ported: topic skew, streaming corpora.
 """
 
@@ -108,11 +111,10 @@ def _lengths(key: torch.Tensor, spec: CorpusSpec, n: int, max_len: int):
     gen = generator_from_key(key)
     if spec.doc_len_lognormal is not None:
         mu, sigma = spec.doc_len_lognormal
-        z = torch.randn((n,), generator=gen, device=key.device)
+        z = torch.randn((n,), generator=gen)
         raw = torch.round(torch.exp(mu + sigma * z))
     else:
-        rate = torch.full((n,), spec.doc_len_poisson, dtype=torch.float32,
-                          device=key.device)
+        rate = torch.full((n,), spec.doc_len_poisson, dtype=torch.float32)
         raw = torch.poisson(rate, generator=gen)
     truncated = (raw < 2) | (raw > max_len)
     return torch.clamp(raw, 2, max_len).to(torch.int64), truncated
@@ -130,7 +132,9 @@ def _zipf_envelope(beta_star: torch.Tensor, exponent: float) -> torch.Tensor:
 
 def make_corpus(config: LDAConfig, key: torch.Tensor,
                 spec: CorpusSpec = CorpusSpec()) -> SyntheticCorpus:
-    """The node-sharded corpus and held-out set, on the key's device."""
+    """The node-sharded corpus and held-out set, on the key's device
+    (drawn on the CPU: the same corpus on every device)."""
+    dev, key = key.device, key.cpu()
     k_beta, k_len, k_doc, k_tlen, k_tdoc = tf3.split(key, 5)
     beta_star = sample_topic_matrix(config, k_beta,
                                     spec.topic_concentration)
@@ -142,8 +146,7 @@ def make_corpus(config: LDAConfig, key: torch.Tensor,
                                    beta_star, lengths)
     if spec.test_len_uniform:
         t_lengths = torch.randint(2, config.doc_len_max + 1, (spec.n_test,),
-                                  generator=generator_from_key(k_tlen),
-                                  device=key.device)
+                                  generator=generator_from_key(k_tlen))
         t_trunc = torch.zeros_like(t_lengths, dtype=torch.bool)
     else:
         t_lengths, t_trunc = _lengths(k_tlen, spec, spec.n_test,
@@ -157,8 +160,10 @@ def make_corpus(config: LDAConfig, key: torch.Tensor,
             f"{trunc_frac:.1%} of drawn document lengths fell outside "
             f"[2, doc_len_max={config.doc_len_max}] and were clipped; the "
             f"realized lengths are biased", stacklevel=2)
-    return SyntheticCorpus(words=words.reshape(shape),
-                           mask=mask.reshape(shape), test_words=t_words,
-                           test_mask=t_mask, beta_star=beta_star,
+    return SyntheticCorpus(words=words.reshape(shape).to(dev),
+                           mask=mask.reshape(shape).to(dev),
+                           test_words=t_words.to(dev),
+                           test_mask=t_mask.to(dev),
+                           beta_star=beta_star.to(dev),
                            alpha_star=config.alpha,
                            length_truncation_frac=trunc_frac)

@@ -1,5 +1,13 @@
 // Attention forward pass with GQA, causal mask, sliding window and logit
-// softcap, for Hopper (sm_90a).
+// softcap, for Hopper (sm_90a), in three variants chosen by the wrapper
+// (ops.variant) from the dtype, Sq, D and the GQA group:
+//   "decode" (decode_split.cuh): Sq * group <= 64 rows, both dtypes, every
+//            D: the keys split over warps and, past 512 visible keys,
+//            over blocks; no tensor cores (bound by the cache's bytes);
+//   "wgmma"  (wgmma_prefill.cuh): bf16 at D in {64, 128, 256} above that:
+//            TMA tiles and wgmma, warp-specialised;
+//   "fma"    (this file): everything else, float32 prefill and bf16 at
+//            D in {16, 32}: float32 FMA tiles.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py, _flash_kernel (reached through
@@ -17,16 +25,16 @@
 // H * D and needs no transpose. Keys past Sk are masked here, so the
 // wrapper pads nothing.
 //
-// What bounds it on an H100. Prefill at S = 8192, D = 256: 4 * Sq * keys *
-// D operations per head over the visible pairs, some 0.3 ms a layer at the
-// bf16 tensor-core rate, against 100 MB of Q, K, V and O (0.03 ms): bound by
-// operations. Decode (Sq = 1 against the cache): bound by the bytes of the
-// visible cache rows. This first version does its products as float32 FMAs
-// (the float32 inputs must agree with the plain version to 2e-5, beyond
-// what TF32 or bf16 tensor cores keep), so at prefill it sits far above the
-// tensor-core bound; wgmma on bf16 tiles is the later step.
+// The "fma" variant, and what bounds it. Prefill at S = 8192, D = 256:
+// 4 * Sq * keys * D operations per head over the visible pairs, some 0.3
+// ms a layer at the bf16 tensor-core rate, against 100 MB of Q, K, V and
+// O (0.03 ms): bound by operations. This variant does its products as
+// float32 FMAs (float32 inputs must agree with the plain version to 2e-5,
+// beyond what TF32 or bf16 tensor cores keep), so on bf16 at prefill it
+// would sit far above the tensor-core bound: bf16 at D >= 64 goes to
+// "wgmma".
 //
-// Design. One block of 256 threads (16 x 16) per (batch * head, 64-row
+// Design of "fma". One block of 256 threads (16 x 16) per (batch * head, 64-row
 // query tile); the TPU's sequential key axis is a loop inside the block,
 // with the online-softmax state (row max m, row sum l, the [64, D]
 // accumulator) in registers. Thread (ty, tx) owns query rows 4ty..4ty+3:
@@ -39,15 +47,18 @@
 // above the 48 KB default, so each launch raises the block's dynamic
 // shared-memory limit first. Only the key tiles that hold a visible key of
 // some row are visited (none past the last row's position, none wholly
-// before the first row's window), so a decode step does not scan the empty
-// cache. Half-warps whose four rows all lie past Sq (every half-warp but
-// one at decode) skip the arithmetic and only help load tiles. The window
+// before the first row's window). Half-warps whose four rows all lie past
+// Sq skip the arithmetic and only help load tiles. The window
 // sentinel 1 << 30 stays in int32: positions and Sk are below 2^30 (the
 // wrapper checks), and the tile range is computed in 64 bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "decode_split.cuh"
+#include "wgmma_prefill.cuh"
 
 namespace {
 
@@ -270,18 +281,36 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
 }  // namespace
 
 // q, o [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; all bf16 (is_bf16) or float32,
-// contiguous. D in {16, 32, 64, 128, 256}; H a multiple of Hkv. Launches on
-// `stream` and returns cudaGetLastError().
+// contiguous, 16-byte aligned. D in {16, 32, 64, 128, 256}; H a multiple
+// of Hkv. variant: 0 "fma", 1 "wgmma" (bf16, D >= 64), 2 "decode" (with
+// n_split key splits; ws_acc / ws_ml its float32 workspace when
+// n_split > 1). Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a variant that does not take the inputs.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int sq,
                                    int sk, int h, int hkv, int d,
                                    int q_offset, int window, int causal,
                                    float scale, float softcap, int is_bf16,
-                                   void* stream) {
-  const Params p{q, k, v, o, b, sq, sk, h, hkv, q_offset, window, causal,
-                 scale, softcap};
+                                   int variant, int n_split, void* ws_acc,
+                                   void* ws_ml, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, d, s)
-                            : dispatch<float>(p, d, s);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == 0) {
+    const Params p{q, k, v, o, b, sq, sk, h, hkv, q_offset, window, causal,
+                   scale, softcap};
+    err = is_bf16 ? dispatch<__nv_bfloat16>(p, d, s)
+                  : dispatch<float>(p, d, s);
+  } else if (variant == 1) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    const wg::Params p{o, b, sq, sk, h, hkv, q_offset, window, causal,
+                       scale, softcap};
+    err = wg::dispatch(q, k, v, p, d, s);
+  } else if (variant == 2) {
+    const dec::Params p{q, k, v, o, static_cast<float*>(ws_acc),
+                        static_cast<float*>(ws_ml), b, sq, sk, h, hkv,
+                        q_offset, window, causal, scale, softcap, n_split};
+    err = is_bf16 ? dec::dispatch<__nv_bfloat16>(p, d, s)
+                  : dec::dispatch<float>(p, d, s);
+  }
   return (int)err;
 }

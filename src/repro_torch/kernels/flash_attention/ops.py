@@ -4,10 +4,27 @@ The ``[B, S, H, D]`` API of the reference's ``ops.flash_attention``. A
 CUDA tensor launches ``csrc/flash_attention.cu`` (or raises); a CPU
 tensor runs the plain version in ``ref.py``. The kernel masks keys past
 ``Sk`` itself, so nothing is padded, and it reads each query head's KV
-head in place, so nothing is transposed or repeated. ``launches`` counts
-kernel launches and nothing else; ``launches_by_shape`` counts them by
-``(B, Sq, Sk, H, Hkv, D, dtype, "local" | "global", softcap)``
-(``q_offset`` is not part of the key).
+head in place, so nothing is transposed or repeated.
+
+The kernel has three variants; :func:`variant` picks one from the dtype,
+``Sq``, ``D`` and the GQA group ``H / Hkv`` alone:
+
+- ``"decode"`` when ``Sq * group <= DECODE_ROWS`` (64), either dtype,
+  every D: one block per (batch, KV head) whose rows are the group's
+  query heads at each position, the keys split over its warps and, past
+  ``SPLIT_KEYS`` visible keys, over blocks too (then a second small pass
+  merges the splits, from a float32 workspace allocated here);
+- ``"wgmma"`` for bf16 at D in ``WGMMA_DIMS`` above that: TMA tiles and
+  ``wgmma`` on the tensor cores;
+- ``"fma"`` otherwise (float32 prefill, bf16 at D 16 or 32): float32 FMA
+  tiles.
+
+A variant that fails to build or launch raises; nothing falls back to
+another variant or to the plain version. ``launches`` counts wrapper
+calls that launched the kernel and nothing else; ``launches_by_shape``
+counts them by ``(B, Sq, Sk, H, Hkv, D, dtype, "local" | "global",
+softcap)`` (``q_offset`` is not part of the key), ``launches_by_variant``
+by variant.
 """
 
 from __future__ import annotations
@@ -21,14 +38,20 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "shape_key", "GLOBAL_WINDOW", "HEAD_DIMS",
-           "launches", "launches_by_shape"]
+__all__ = ["flash_attention", "shape_key", "variant", "n_splits",
+           "GLOBAL_WINDOW", "HEAD_DIMS", "VARIANTS", "launches",
+           "launches_by_shape", "launches_by_variant"]
 
 GLOBAL_WINDOW = 1 << 30     # a window this wide masks nothing: "global"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_DIMS = (64, 128, 256)
+DECODE_ROWS = 64            # "decode" takes Sq * group up to this
+SPLIT_KEYS = 512            # visible keys of one "decode" split
+VARIANTS = ("fma", "wgmma", "decode")    # the kernel's variant codes 0, 1, 2
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 launches = 0
 launches_by_shape: dict[tuple, int] = {}
+launches_by_variant: dict[str, int] = {}
 
 
 def shape_key(q: torch.Tensor, k: torch.Tensor, window: Optional[int],
@@ -41,11 +64,34 @@ def shape_key(q: torch.Tensor, k: torch.Tensor, window: Optional[int],
             "local" if local else "global", softcap)
 
 
+def variant(dtype: torch.dtype, sq: int, d: int, group: int) -> str:
+    """The kernel variant a launch takes: "decode" for at most
+    ``DECODE_ROWS`` query rows per KV head (``Sq * group``), else "wgmma"
+    for bf16 at D in ``WGMMA_DIMS``, else "fma"."""
+    if sq * group <= DECODE_ROWS:
+        return "decode"
+    if dtype == torch.bfloat16 and d in WGMMA_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def n_splits(sq: int, sk: int, causal: bool, window: int,
+             q_offset: int) -> int:
+    """Key splits of a "decode" launch: one per ``SPLIT_KEYS`` keys that
+    some row sees (at least 1), as the kernel cuts them."""
+    kmax = min(sk - 1, q_offset + sq - 1) if causal else sk - 1
+    kmin = max(0, q_offset - window + 1)
+    return max(1, -(-(kmax - kmin + 1) // SPLIT_KEYS))
+
+
 def _launch(q, k, v, causal, window, softcap, scale, q_offset):
     global launches
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     common.require_cuda("flash_attention", q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: want q, k, v all bfloat16 or "
                          f"all float32, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -60,6 +106,16 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset):
     out = torch.empty_like(q)
     if sq == 0:
         return out
+    var = variant(q.dtype, sq, d, h // hkv)
+    if var == "wgmma" and -(-sq // 128) > 65535:
+        raise ValueError(f"flash_attention: Sq = {sq} > 65535 * 128")
+    splits = (n_splits(sq, sk, bool(causal), window, q_offset)
+              if var == "decode" else 1)
+    ws_acc = ws_ml = None
+    if splits > 1:
+        rows = b * hkv * splits * sq * (h // hkv)
+        ws_acc = torch.empty((rows, d), dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
     lib = common.load("flash_attention")
     ptr = ctypes.c_void_p
     with torch.cuda.device(q.device):
@@ -71,11 +127,15 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset):
             ctypes.c_int(min(window, GLOBAL_WINDOW)), ctypes.c_int(causal),
             ctypes.c_float(scale), ctypes.c_float(softcap or 0.0),
             ctypes.c_int(q.dtype == torch.bfloat16),
+            ctypes.c_int(VARIANTS.index(var)), ctypes.c_int(splits),
+            ptr(0 if ws_acc is None else ws_acc.data_ptr()),
+            ptr(0 if ws_ml is None else ws_ml.data_ptr()),
             ptr(common.stream_ptr()))
-    common.check(err, "flash_attention")
+    common.check(err, f"flash_attention ({var})")
     launches += 1
     key = shape_key(q, k, window, softcap)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    launches_by_variant[var] = launches_by_variant.get(var, 0) + 1
     return out
 
 

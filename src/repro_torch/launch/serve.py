@@ -12,7 +12,10 @@ attention call goes through the ``flash_attention`` kernel on the card.
       --full --batch 4 --prompt-len 128 --gen 64
 
 Runs on the GPU; ``--device cpu`` runs the plain torch path instead.
-:func:`main` returns the tokens and the measured times as a dict.
+The weights and the prompt are drawn on the CPU from ``--seed`` and
+moved to the device, so both devices serve the same model (the draw's
+seconds are printed). :func:`main` returns the parameters, the prompt,
+the tokens and the measured times as a dict.
 """
 
 from __future__ import annotations
@@ -92,16 +95,24 @@ def main(argv=None) -> dict:
         cfg = smoke_variant(cfg)
     print(f"arch={cfg.name} family={cfg.family} params~{cfg.n_params():,} "
           f"device={dev}")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = tf.init_decoder_lm(cfg, gen)
+    # weights and prompt from a CPU generator, moved to the device: the
+    # same model and prompt for a seed on every device
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(args.seed)
+    params = tf.init_decoder_lm(cfg, gen, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=dev)
+                           generator=gen).to(dev)
+    _sync(dev)
+    init_sec = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    print(f"weights and prompt drawn on the CPU, placed on {dev} in "
+          f"{init_sec:.2f}s")
     tokens, stats = generate(cfg, params, prompt, args.gen)
     print(f"generated {tuple(tokens.shape)} | prefill "
           f"{stats['prefill_sec']:.2f}s | decode {stats['decode_sec']:.2f}s "
           f"({stats['decode_tok_per_sec']:.1f} tok/s)")
     print("sample:", tokens[0, args.prompt_len:args.prompt_len + 12].tolist())
-    return {"config": cfg, "tokens": tokens, **stats}
+    return {"config": cfg, "params": params, "prompt": prompt,
+            "tokens": tokens, "init_sec": init_sec, **stats}
 
 
 if __name__ == "__main__":

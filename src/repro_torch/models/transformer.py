@@ -105,16 +105,26 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
     return [cfg.window or GLOBAL_WINDOW] * cfg.n_layers
 
 
-def init_decoder_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters from ``gen``, on ``gen``'s device, in the
-    config's dtype (the reference's init laws, not its bits)."""
+def init_decoder_lm(cfg: ModelConfig, gen: torch.Generator,
+                    device=None) -> dict:
+    """Random parameters from ``gen``, in the config's dtype (the
+    reference's init laws, not its bits). They are drawn on ``gen``'s
+    device and moved to ``device`` (default: ``gen``'s) a layer at a
+    time, so a CPU generator gives the same weights on every device."""
     _require_dense(cfg)
     dtype = cfg.torch_dtype
+    dev = gen.device if device is None else torch.device(device)
+
+    def put(tree: dict) -> dict:
+        return {k: put(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
     params: dict = {
-        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
-        "final_norm": _norm_init(cfg, dtype, gen.device),
+        "embed": put(L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
+                                      dtype)),
+        "final_norm": put(_norm_init(cfg, dtype, gen.device)),
     }
-    params["layers"] = [_init_dense_layer(cfg, gen, dtype)
+    params["layers"] = [put(_init_dense_layer(cfg, gen, dtype))
                         for _ in range(cfg.n_layers)]
     return params
 

@@ -268,45 +268,90 @@ def test_attention_on_a_non_cpu_device_is_never_served_by_plain_code():
 
 
 # the reference kernel test's seven cases (tests/test_kernels.py), then
-# gemma2-2b's head: D=256, GQA 8/4, window and softcap, in bf16
+# gemma2-2b's head: D=256, GQA 8/4, window and softcap, in bf16; then the
+# variants' edges: bf16 prefill at D 64 / 128 / 256 with Sq and Sk off
+# the 64 and 128 tiles, windows under 64 and across tile edges, no
+# softcap, groups 1, 2 and 8, q_offset > 0 with Sq > 1, decode at offsets
+# 0 and Sk - 1, and a long cache (Sk=4096, split over blocks) with and
+# without a window. Each case names the variant it must count under.
 FLASH_CASES = [
-    (2, 128, 128, 4, 2, 64, {}, torch.float32, 2e-5),
-    (1, 100, 100, 2, 2, 32, {}, torch.float32, 2e-5),
-    (1, 64, 64, 2, 2, 16, {}, torch.float32, 2e-5),
-    (1, 192, 192, 4, 1, 64, {"window": 64}, torch.float32, 2e-5),
-    (1, 128, 128, 2, 2, 64, {"softcap": 30.0}, torch.float32, 2e-5),
-    (2, 1, 192, 4, 2, 64, {"q_offset": 191}, torch.float32, 2e-5),
+    (2, 128, 128, 4, 2, 64, {}, torch.float32, 2e-5, "fma"),
+    (1, 100, 100, 2, 2, 32, {}, torch.float32, 2e-5, "fma"),
+    (1, 64, 64, 2, 2, 16, {}, torch.float32, 2e-5, "decode"),
+    (1, 192, 192, 4, 1, 64, {"window": 64}, torch.float32, 2e-5, "fma"),
+    (1, 128, 128, 2, 2, 64, {"softcap": 30.0}, torch.float32, 2e-5, "fma"),
+    (2, 1, 192, 4, 2, 64, {"q_offset": 191}, torch.float32, 2e-5,
+     "decode"),
     (1, 128, 128, 4, 4, 32, {"window": 32, "softcap": 50.0}, torch.float32,
-     2e-5),
+     2e-5, "fma"),
     (2, 300, 300, 8, 4, 256, {"window": 128, "softcap": 50.0},
-     torch.bfloat16, 3e-2),
+     torch.bfloat16, 3e-2, "wgmma"),
     (4, 1, 192, 8, 4, 256, {"window": 64, "softcap": 50.0,
-                            "q_offset": 150}, torch.bfloat16, 3e-2),
+                            "q_offset": 150}, torch.bfloat16, 3e-2,
+     "decode"),
+    (1, 200, 200, 4, 4, 64, {}, torch.bfloat16, 3e-2, "wgmma"),
+    (2, 333, 333, 2, 1, 128, {"softcap": 30.0}, torch.bfloat16, 3e-2,
+     "wgmma"),
+    (1, 190, 190, 8, 1, 128, {}, torch.bfloat16, 3e-2, "wgmma"),
+    (1, 257, 257, 4, 2, 128, {"window": 40}, torch.bfloat16, 3e-2, "wgmma"),
+    (1, 400, 400, 8, 4, 256, {"window": 100, "softcap": 50.0},
+     torch.bfloat16, 3e-2, "wgmma"),
+    (1, 77, 300, 8, 4, 256, {"q_offset": 223, "softcap": 50.0},
+     torch.bfloat16, 3e-2, "wgmma"),
+    (1, 100, 100, 4, 2, 32, {}, torch.bfloat16, 3e-2, "fma"),
+    (2, 1, 150, 8, 1, 64, {"q_offset": 0}, torch.bfloat16, 3e-2, "decode"),
+    (3, 1, 150, 4, 2, 256, {"q_offset": 149, "softcap": 50.0},
+     torch.bfloat16, 3e-2, "decode"),
+    (1, 16, 300, 4, 2, 64, {"q_offset": 284, "window": 50},
+     torch.bfloat16, 3e-2, "decode"),
+    (1, 1, 100, 2, 1, 16, {"q_offset": 50}, torch.float32, 2e-5, "decode"),
+    (2, 1, 4096, 8, 4, 256, {"q_offset": 4095, "softcap": 50.0},
+     torch.bfloat16, 3e-2, "decode"),
+    (2, 1, 4096, 8, 4, 256, {"q_offset": 4000, "window": 1500,
+                             "softcap": 50.0}, torch.bfloat16, 3e-2,
+     "decode"),
+    (1, 1, 4096, 4, 2, 128, {"q_offset": 3000}, torch.float32, 2e-5,
+     "decode"),
+    (1, 32, 300, 8, 4, 256, {"q_offset": 268, "window": 16,
+                             "softcap": 50.0}, torch.bfloat16, 3e-2,
+     "decode"),
+    (1, 8, 1200, 8, 1, 128, {"q_offset": 1192}, torch.float32, 2e-5,
+     "decode"),
 ]
+# each output row's error (RMS over D) within this share of the row's RMS
+FLASH_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=[f"flash{i}" for i in range(len(FLASH_CASES))])
 def test_flash_attention_matches_plain_on_card(cuda_device, case):
-    """K5 against its plain version, one launch counted under its shape."""
+    """K5 against its plain version (and each output row against its own
+    size), one launch counted under its shape and under the variant the
+    case names."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    b, sq, sk, h, hkv, d, kw, dtype, atol = case
+    b, sq, sk, h, hkv, d, kw, dtype, atol, var = case
+    assert flash_ops.variant(dtype, sq, d, h // hkv) == var
     rng = np.random.default_rng(sq + sk + d)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                .to(cuda_device, dtype)
                for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
     key = flash_ops.shape_key(q, k, kw.get("window"), kw.get("softcap"))
     before = flash_ops.launches_by_shape.get(key, 0)
+    before_var = flash_ops.launches_by_variant.get(var, 0)
     got = flash_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_ops.launches_by_shape[key] == before + 1
+    assert flash_ops.launches_by_variant[var] == before_var + 1
     want = attention_ref(*(x.transpose(1, 2).reshape(-1, x.shape[1], d)
                            for x in (q, k, v)), **kw)
     want = want.reshape(b, h, sq, d).transpose(1, 2)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    err = (got.double() - want.double()).pow(2).mean(-1).sqrt()
+    size = want.double().pow(2).mean(-1).sqrt().clamp_min(1e-6)
+    assert float((err / size).max()) <= FLASH_ROW_TOL[dtype]
 
 
 def test_flash_attention_refuses_bad_launches_on_card(cuda_device):
@@ -327,3 +372,64 @@ def test_flash_attention_refuses_bad_launches_on_card(cuda_device):
                                   k[..., :24].contiguous(),
                                   k[..., :24].contiguous())
     assert flash_ops.launches == before
+
+
+def test_generator_from_key_is_a_cpu_generator():
+    """The corpus generator is a CPU one, seeded by the key's words alone
+    (a CUDA key gets one too: test_corpus_on_cuda_equals_cpu_corpus)."""
+    from repro_torch.core import lda
+    from repro_torch.core import threefry as tf3
+
+    gen = lda.generator_from_key(tf3.key(5))
+    assert gen.device == torch.device("cpu")
+    again = lda.generator_from_key(tf3.key(5))
+    assert torch.equal(torch.rand(4, generator=gen),
+                       torch.rand(4, generator=again))
+
+
+def test_corpus_on_cuda_equals_cpu_corpus(cuda_device):
+    """make_corpus on a CUDA key gives the CPU corpus bit for bit at the
+    reduced §4 scale: words, mask, beta* and the lengths."""
+    from repro_torch.core import lda
+    from repro_torch.core import threefry as tf3
+    from repro_torch.data.lda_synthetic import make_corpus
+    from repro_torch.launch.deleda_experiment import REDUCED
+
+    gen = lda.generator_from_key(tf3.key(0, cuda_device))
+    assert gen.device == torch.device("cpu")
+    on_cpu = make_corpus(REDUCED.lda, tf3.key(0), REDUCED.corpus)
+    on_gpu = make_corpus(REDUCED.lda, tf3.key(0, cuda_device),
+                         REDUCED.corpus)
+    for name in ("words", "mask", "test_words", "test_mask", "beta_star"):
+        got = getattr(on_gpu, name)
+        assert got.device.type == "cuda", name
+        assert torch.equal(got.cpu(), getattr(on_cpu, name)), name
+    assert torch.equal(on_gpu.mask.sum(-1).cpu(), on_cpu.mask.sum(-1))
+    assert on_gpu.length_truncation_frac == on_cpu.length_truncation_frac
+
+
+def test_serve_main_draws_the_same_model_on_cuda_and_cpu(cuda_device):
+    """serve.main's weights and prompt are the seed's on both devices."""
+    from repro_torch.launch import serve
+
+    argv = ["--batch", "2", "--prompt-len", "4", "--gen", "2", "--seed", "3"]
+    on_cpu = serve.main(argv + ["--device", "cpu"])
+    on_gpu = serve.main(argv + ["--device", "cuda"])
+    assert torch.equal(on_gpu["prompt"].cpu(), on_cpu["prompt"])
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    want = dict(leaves(on_cpu["params"]))
+    got = dict(leaves(on_gpu["params"]))
+    assert got.keys() == want.keys()
+    for path, leaf in got.items():
+        assert leaf.device.type == "cuda", path
+        assert torch.equal(leaf.cpu(), want[path]), path
