@@ -7,6 +7,10 @@
    limit (``nvidia-smi --query-gpu=name,power.limit``).
 2. Builds every kernel from ``src/repro_torch/kernels/*/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
+   Beside them it builds and times a probe, one thread's chain of 2**20
+   dependent float32 adds (``ADD_CHAIN_SRC``): its ns per add (CUDA
+   events; cycles by ``clock64`` and the SM clock printed beside) price
+   the chain bound of K2 and K4.
 3. Serving (slice 1). Holds ``lda_gibbs`` and ``lda_l2r`` against their
    plain torch versions, and times both (median of CUDA-event timings
    after warm-up), at the paper's node shape (K=5, V=1,000, L=32) and at
@@ -103,8 +107,12 @@
    decode steps under ``torch.profiler``.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
-   counted launches), one line each of serving, DELEDA, unique-layout
-   and LM-serving numbers with the card, and the script's seconds.
+   counted launches; K2's and K4's shapes also carry ``chain_ms``, the
+   bound of their design, which makes a document's draws one after
+   another: S x the longest document's active positions x K dependent
+   adds at this run's t_add, beside the bytes and operations bound), one
+   line each of serving, DELEDA, unique-layout and LM-serving numbers
+   with the card, and the script's seconds.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -113,6 +121,7 @@ device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -137,6 +146,30 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # the float32 lanes, so this part of the bound is optimistic by up to 2x)
 CIPHER_OPS = 119
 TIE = 1e-6
+# The probe that measures t_add, one dependent float32 add, for K2's and
+# K4's chain bound: one thread, CHAIN_ADDS adds, its cycles by clock64.
+CHAIN_ADDS = 1 << 20
+ADD_CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void add_chain(float* out, long long* cycles, int n, float x,
+                          float y) {
+  float c = out[0];
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int i = 0; i < n; i += 2) {
+    c = c + x;
+    c = c + y;
+  }
+  const long long t1 = clock64();
+  out[0] = c;
+  cycles[0] = t1 - t0;
+}
+extern "C" int run_chain(float* out, long long* cycles, int n, float x,
+                         float y, void* stream) {
+  add_chain<<<1, 1, 0, (cudaStream_t)stream>>>(out, cycles, n, x, y);
+  return (int)cudaGetLastError();
+}
+"""
 SLICE = dict(k=100, v=50_000, l=64)
 NODE = dict(k=5, v=1_000, l=32)
 TRAIN_STEPS, TRAIN_BATCH = 20, 256
@@ -262,6 +295,61 @@ def _bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _chain_ms(rt, s, longest, k):
+    """The chain bound of K2 / K4, whose design makes a document's draws
+    one after another: ``s`` draws of each of the longest document's
+    ``longest`` active positions (or slots), each ``k`` dependent float32
+    adds in the plain version's association, at this run's t_add. A
+    design that began a draw's running sum before the draw ahead of it
+    ended could go below it."""
+    return s * longest * k * rt.t_add_ns * 1e-6
+
+
+def _start_add_chain(rt):
+    """Starts nvcc on the t_add probe; returns the process and library."""
+    out = rt.common.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "add_chain.cu", out / f"add_chain.{os.getpid()}.so"
+    src.write_text(ADD_CHAIN_SRC)
+    proc = subprocess.Popen(
+        [rt.common._nvcc(), *rt.common.NVCC_FLAGS, "-o", str(lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, lib
+
+
+def _time_add(rt, dev, proc, lib_path):
+    """ns (CUDA events) and cycles (clock64) of one dependent float32 add,
+    the SM clock read before and after; sets ``rt.t_add_ns``."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the add-chain probe:\n{log}")
+    lib = ctypes.CDLL(str(lib_path))
+    out = torch.ones(1, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def run():
+        err = lib.run_chain(
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(cycles.data_ptr()), ctypes.c_int(CHAIN_ADDS),
+            ctypes.c_float(1e-7), ctypes.c_float(-1e-7),
+            ctypes.c_void_p(rt.common.stream_ptr()))
+        rt.common.check(err, "add_chain")
+
+    before = _smi("clocks.sm,clocks.max.sm")
+    ms, _ = _time_ms(run, reps=7, warmup=2, device_only=True)
+    after = _smi("clocks.sm,clocks.max.sm")
+    lib_path.unlink()
+    cyc = int(cycles.item()) / CHAIN_ADDS
+    rt.t_add_ns = ms * 1e6 / CHAIN_ADDS
+    if not 0.5 < rt.t_add_ns < 20:
+        raise AssertionError(f"t_add {rt.t_add_ns} ns is not a float32 add")
+    print(f"t_add, one dependent float32 add ({CHAIN_ADDS} in one thread): "
+          f"{rt.t_add_ns:.4f} ns (CUDA events), {cyc:.3f} cycles (clock64) "
+          f"= {cyc / rt.t_add_ns:.3f} GHz; SM clock before [{before}] "
+          f"after [{after}] | {rt.card}", flush=True)
+
+
 def _gibbs_bound(b, l, k, s, burnin, active):
     """Bytes and operations the sweeps need for ``active`` tokens.
 
@@ -314,6 +402,7 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
         bad |= ~close.reshape(b, -1).all(-1)
     flips = int(bad.sum())
     active = int(mf.sum())
+    chain = _chain_ms(rt, s, int((mf != 0).sum(-1).max()), k)
     if flips:
         margins = rt.estep.gibbs_tie_margins(
             bw[bad], mf[bad], u[:, bad], z0[bad], alpha=0.5, n_sweeps=s)
@@ -327,13 +416,13 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
     bound, by = _gibbs_bound(b, l, k, s, burnin, active)
     shape = f"B={b} L={l} K={k} S={s}"
     print(f"lda_gibbs vs plain at {shape}: max_abs_err {err:.3g}, tie flips "
-          f"{flips} in {active * s} draws; {ms:.3f} ms (plain "
-          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
-          flush=True)
+          f"{flips} in {active * s} draws; {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, chain "
+          f"{chain:.4f} ms) | {rt.card}", flush=True)
     return dict(name="lda_gibbs", key=(b, l, k, s), shape=shape, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                active_tokens=active, max_abs_err=err, tie_flips=flips,
-                launches=0)
+                chain_ms=chain, active_tokens=active, max_abs_err=err,
+                tie_flips=flips, launches=0)
 
 
 def _hold_l2r(rt, dev, case, k, v, seed):
@@ -399,6 +488,7 @@ def _hold_sparse(rt, dev, case, k, v, seed):
                        reps=7, device_only=True)
     flips = int((got[1] != want[1]).reshape(b, -1).any(-1).sum())
     active = int((cf > 0).sum())
+    chain = _chain_ms(rt, s, int((cf != 0).sum(-1).max()), k)
     if flips:
         raise AssertionError(f"lda_sparse draws differ from its plain "
                              f"version in {flips} documents at {case}")
@@ -409,13 +499,13 @@ def _hold_sparse(rt, dev, case, k, v, seed):
     bound, by = _sparse_bound(b, u, k, s, burnin, active)
     shape = f"B={b} U={u} K={k} S={s}"
     print(f"lda_sparse vs plain at {shape}: max_abs_err {err:.3g}, tie "
-          f"flips {flips} in {active * s} draws; {ms:.3f} ms (plain "
-          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
-          flush=True)
+          f"flips {flips} in {active * s} draws; {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, chain "
+          f"{chain:.4f} ms) | {rt.card}", flush=True)
     return dict(name="lda_sparse", key=(b, u, k, s), shape=shape, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                active_tokens=active, max_abs_err=err, tie_flips=flips,
-                launches=0)
+                chain_ms=chain, active_tokens=active, max_abs_err=err,
+                tie_flips=flips, launches=0)
 
 
 def _main_path_cases(rt):
@@ -587,6 +677,7 @@ class _Port:
         self.flex = None      # compiled flex_attention, the K5 yardstick
 
         self.card = ""        # the card's name and power limit, for prints
+        self.t_add_ns = 0.0   # one dependent float32 add (the chain bound)
 
     def zero_counts(self) -> None:
         for op in (*self.ops.values(), self.flash_ops):
@@ -1725,9 +1816,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = rt.card = _smi("name,power.limit")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} driver "
-          f"{_smi('driver_version')} | {card}", flush=True)
+          f"{_smi('driver_version')} | {card}; SM clock "
+          f"{_smi('clocks.sm,clocks.max.sm')}", flush=True)
 
     t0 = time.perf_counter()
+    probe = _start_add_chain(rt)
     logs = rt.common.build_all()
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
@@ -1735,6 +1828,7 @@ def main() -> int:
             print(f"  {name}: {line}")
     print(f"kernels built in {build_s:.1f}s: "
           f"{', '.join(rt.common.KERNEL_NAMES)}", flush=True)
+    _time_add(rt, dev, *probe)
     # phase 3: every kernel against its plain version, node shape first
     node_len = ("poisson", 2, NODE["l"])
     node_err = {

@@ -5,8 +5,9 @@ Each kernel package keeps its sources under ``kernels/<name>/csrc/``.
 into a shared library with a plain C interface under
 ``build/repro_torch_kernels/`` at the repository root, and loads it with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The build
-runs at first use; a library whose name carries the hash of its sources
-and flags is reused. ``nvcc`` runs with ``--fmad=false``: a fused
+runs at first use; a library whose name carries the hash of its sources,
+the shared headers they include (``kernels/csrc/``, passed with ``-I``)
+and the flags is reused. ``nvcc`` runs with ``--fmad=false``: a fused
 multiply-add rounds once where the plain torch versions round twice, and
 the LDA kernels must make the same draws as those versions. The flag
 only stops the compiler from fusing a multiply and an add; a kernel
@@ -24,6 +25,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -54,16 +56,37 @@ def _nvcc() -> str:
     return found
 
 
+def _shared_includes(text: str, seen: set[pathlib.Path]) -> None:
+    """Add to ``seen`` the files of the shared directory that ``text``
+    includes, in quotes or in angle brackets (``-I`` finds both), and
+    theirs in turn."""
+    for inc in re.findall(r'#\s*include\s*[<"]([^>"]+)[>"]', text):
+        f = _PKG / "csrc" / inc
+        if f.is_file() and f not in seen:
+            seen.add(f)
+            _shared_includes(f.read_text(), seen)
+
+
 def _target(name: str) -> tuple[pathlib.Path, list[pathlib.Path]]:
     csrc = _PKG / name / "csrc"
     sources = sorted(csrc.glob("*.cu"))
     if len(sources) != 1:
         raise RuntimeError(f"kernel {name}: expected one .cu under {csrc}")
+    own = sorted(csrc.glob("*.cu*"))
+    shared: set[pathlib.Path] = set()
+    for f in own:
+        _shared_includes(f.read_text(), shared)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(csrc.glob("*.cu*")):
-        h.update(f.name.encode())
+    for f in own + sorted(shared):
+        h.update(f.relative_to(_PKG).as_posix().encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", sources
+
+
+def _nvcc_args(sources: list[pathlib.Path], out: pathlib.Path) -> list[str]:
+    """nvcc's arguments for one kernel (without the compiler itself)."""
+    return [*NVCC_FLAGS, "-I", str(_PKG / "csrc"), "-o", str(out),
+            *map(str, sources)]
 
 
 def build_all(names=KERNEL_NAMES) -> dict[str, str]:
@@ -79,7 +102,7 @@ def build_all(names=KERNEL_NAMES) -> dict[str, str]:
         if lib.exists():
             continue
         tmp = lib.parent / f"{lib.stem}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [_nvcc(), *_nvcc_args(sources, tmp)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, lib)

@@ -17,7 +17,13 @@ from repro_torch.kernels.lda_gibbs.ref import gibbs_sweeps_ref
 
 __all__ = ["gibbs_sweeps", "launches", "launches_by_shape", "MAX_TOPICS"]
 
-MAX_TOPICS = 128       # shared memory holds 3 x [K][32] floats per block
+# a warp per document (kernels/csrc/gibbs_warp.cuh): 32 lanes own 4
+# topics each, and topics are kept as uint8; shared memory limits the
+# document's length (about 33,000 positions), not K
+MAX_TOPICS = 128
+# the C entry point's return when one warp's rows do not fit a block's
+# shared memory (gibbs_warp::kTooLong)
+_TOO_LONG = -1
 launches = 0
 launches_by_shape: dict[tuple, int] = {}
 
@@ -25,8 +31,8 @@ launches_by_shape: dict[tuple, int] = {}
 def _launch(beta_w, maskf, uniforms, z0, alpha, n_sweeps, burnin):
     global launches
     b, l, k = beta_w.shape
-    if k > MAX_TOPICS:
-        raise ValueError(f"lda_gibbs: K={k} > {MAX_TOPICS} topics")
+    if not 1 <= k <= MAX_TOPICS:
+        raise ValueError(f"lda_gibbs: K={k} outside 1..{MAX_TOPICS} topics")
     if uniforms.shape != (n_sweeps, b, l):
         raise ValueError(f"lda_gibbs: uniforms must be [{n_sweeps}, {b}, "
                          f"{l}], got {tuple(uniforms.shape)}")
@@ -44,8 +50,6 @@ def _launch(beta_w, maskf, uniforms, z0, alpha, n_sweeps, burnin):
     ndk_mean = torch.empty((b, k), dtype=torch.float32, device=beta_w.device)
     if b == 0:
         return per_pos, z.to(torch.int64), ndk_mean
-    sms = torch.cuda.get_device_properties(beta_w.device).multi_processor_count
-    docs_per_block = min(32, -(-b // sms))
     lib = common.load("lda_gibbs")
     ptr = ctypes.c_void_p
     with torch.cuda.device(beta_w.device):
@@ -55,8 +59,10 @@ def _launch(beta_w, maskf, uniforms, z0, alpha, n_sweeps, burnin):
             ptr(per_pos.data_ptr()), ptr(z.data_ptr()),
             ptr(ndk_mean.data_ptr()), ctypes.c_int(b), ctypes.c_int(l),
             ctypes.c_int(k), ctypes.c_int(n_sweeps), ctypes.c_int(burnin),
-            ctypes.c_float(alpha), ctypes.c_int(docs_per_block),
-            ptr(common.stream_ptr()))
+            ctypes.c_float(alpha), ptr(common.stream_ptr()))
+    if err == _TOO_LONG:
+        raise ValueError(f"lda_gibbs: documents of {l} positions do not fit "
+                         f"one warp's shared memory")
     common.check(err, "lda_gibbs")
     launches += 1
     shape = (b, l, k, n_sweeps)

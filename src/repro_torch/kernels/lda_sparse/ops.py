@@ -17,7 +17,13 @@ from repro_torch.kernels.lda_sparse.ref import sparse_sweeps_ref
 
 __all__ = ["sparse_sweeps", "launches", "launches_by_shape", "MAX_TOPICS"]
 
-MAX_TOPICS = 128       # a slot's topic is kept as uint8 in shared memory
+# a warp per document (kernels/csrc/gibbs_warp.cuh): 32 lanes own 4
+# topics each, and topics are kept as uint8; shared memory limits the
+# document's length (about 33,000 slots), not K
+MAX_TOPICS = 128
+# the C entry point's return when one warp's rows do not fit a block's
+# shared memory (gibbs_warp::kTooLong)
+_TOO_LONG = -1
 launches = 0
 launches_by_shape: dict[tuple, int] = {}
 
@@ -25,8 +31,8 @@ launches_by_shape: dict[tuple, int] = {}
 def _launch(beta_w, countf, uniforms, z0, alpha, n_sweeps, burnin):
     global launches
     b, u, k = beta_w.shape
-    if k > MAX_TOPICS:
-        raise ValueError(f"lda_sparse: K={k} > {MAX_TOPICS} topics")
+    if not 1 <= k <= MAX_TOPICS:
+        raise ValueError(f"lda_sparse: K={k} outside 1..{MAX_TOPICS} topics")
     if uniforms.shape != (n_sweeps, b, u):
         raise ValueError(f"lda_sparse: uniforms must be [{n_sweeps}, {b}, "
                          f"{u}], got {tuple(uniforms.shape)}")
@@ -44,11 +50,6 @@ def _launch(beta_w, countf, uniforms, z0, alpha, n_sweeps, burnin):
     ndk_mean = torch.empty((b, k), dtype=torch.float32, device=beta_w.device)
     if b == 0:
         return per_unique, m, ndk_mean
-    sms = torch.cuda.get_device_properties(beta_w.device).multi_processor_count
-    docs_per_block = min(32, -(-b // sms))
-    if 3 * k * docs_per_block * 4 + u * docs_per_block > 227 * 1024:
-        raise ValueError(f"lda_sparse: too much shared memory at U={u}, "
-                         f"K={k}")
     lib = common.load("lda_sparse")
     ptr = ctypes.c_void_p
     with torch.cuda.device(beta_w.device):
@@ -58,8 +59,10 @@ def _launch(beta_w, countf, uniforms, z0, alpha, n_sweeps, burnin):
             ptr(per_unique.data_ptr()), ptr(m.data_ptr()),
             ptr(ndk_mean.data_ptr()), ctypes.c_int(b), ctypes.c_int(u),
             ctypes.c_int(k), ctypes.c_int(n_sweeps), ctypes.c_int(burnin),
-            ctypes.c_float(alpha), ctypes.c_int(docs_per_block),
-            ptr(common.stream_ptr()))
+            ctypes.c_float(alpha), ptr(common.stream_ptr()))
+    if err == _TOO_LONG:
+        raise ValueError(f"lda_sparse: documents of {u} slots do not fit "
+                         f"one warp's shared memory")
     common.check(err, "lda_sparse")
     launches += 1
     shape = (b, u, k, n_sweeps)

@@ -228,6 +228,75 @@ def test_sparse_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(sparse[1], onehot * mf[..., None])
 
 
+GIBBS_EDGE_CASES = [(kernel, k, b) for kernel in ("lda_gibbs", "lda_sparse")
+                    for k in (1, 31, 32, 33, 100, 128) for b in (1, 7, 133)]
+
+
+@pytest.mark.parametrize("kernel,k,b", GIBBS_EDGE_CASES,
+                         ids=lambda v: str(v))
+def test_gibbs_warp_kernels_match_plain_on_card(cuda_device, kernel, k, b):
+    """K2 and K4 (one warp per document, ``csrc/gibbs_warp.cuh``) against
+    their plain versions where lanes own 0 to 4 topics (K = 1 ... 128) and
+    the last block is ragged (B = 1, 7, 133). With B >= 7: a document with
+    no active position, one whose only active position is its last, and
+    uniforms at 0.0 and at 1 - 2**-24. Draws equal; outputs as the K = 7 /
+    9 tests hold them; one launch counted at the shape."""
+    from repro_torch.core import estep
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+    from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+    rng = np.random.default_rng(k * 1000 + b)
+    n, s, burnin = 12, 5, 2
+    bw = rng.random((b, n, k), dtype=np.float32) + 1e-3
+    if kernel == "lda_gibbs":
+        w = (rng.random((b, n)) < 0.8).astype(np.float32)
+    else:
+        w = rng.integers(0, 4, (b, n)).astype(np.float32)
+    u = rng.random((s, b, n), dtype=np.float32)
+    if b >= 7:
+        w[1] = 0.0
+        w[2] = 0.0
+        w[2, -1] = 1.0
+        u[:, 3] = 0.0
+        u[:, 4] = np.float32(1 - 2.0 ** -24)
+    z0 = rng.integers(0, k, (b, n))
+    args = [torch.from_numpy(x).to(cuda_device) for x in (bw, w, u, z0)]
+    kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
+    ops = gibbs_ops if kernel == "lda_gibbs" else sparse_ops
+    plain = (estep.gibbs_sweeps_dense if kernel == "lda_gibbs"
+             else estep.gibbs_sweeps_sparse)
+    before = ops.launches_by_shape.get((b, n, k, s), 0)
+    got = (gibbs_ops.gibbs_sweeps(*args, **kw) if kernel == "lda_gibbs"
+           else sparse_ops.sparse_sweeps(*args, **kw))
+    torch.cuda.synchronize()
+    assert ops.launches_by_shape[(b, n, k, s)] == before + 1
+    want = plain(*args, **kw)
+    assert torch.equal(got[1], want[1])       # the same draws (z, or m)
+    for g, w_ in (got[0], want[0]), (got[2], want[2]):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["lda_gibbs", "lda_sparse"])
+def test_gibbs_warp_kernels_refuse_what_does_not_fit(cuda_device, kernel):
+    """A document whose rows do not fit one warp's shared memory (40,000
+    positions) is refused with a ValueError, and nothing is counted."""
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+    from repro_torch.kernels.lda_sparse import ops as sparse_ops
+
+    ops = gibbs_ops if kernel == "lda_gibbs" else sparse_ops
+    fn = (gibbs_ops.gibbs_sweeps if kernel == "lda_gibbs"
+          else sparse_ops.sparse_sweeps)
+    n = 40_000
+    before = ops.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(torch.ones((1, n, 2), device=cuda_device),
+           torch.ones((1, n), device=cuda_device),
+           torch.rand((2, 1, n), device=cuda_device),
+           torch.zeros((1, n), dtype=torch.int64, device=cuda_device),
+           alpha=0.5, n_sweeps=2, burnin=1)
+    assert ops.launches == before
+
+
 def test_count_weighted_l2r_matches_plain_on_card(cuda_device):
     """K3 in the count-weighted mode against its plain version, at U = L
     with padding slots (the in-loop evaluator's layout)."""
