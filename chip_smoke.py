@@ -10,10 +10,12 @@
    Beside them it builds and times a probe, one thread's chain of 2**20
    dependent float32 adds (``ADD_CHAIN_SRC``): its ns per add (CUDA
    events; cycles by ``clock64`` and the SM clock printed beside) price
-   the chain bound of K2 and K4.
+   the chain bound of K2, K3 and K4.
 3. Serving (slice 1). Holds ``lda_gibbs`` and ``lda_l2r`` against their
-   plain torch versions, and times both (median of CUDA-event timings
-   after warm-up), at the paper's node shape (K=5, V=1,000, L=32) and at
+   plain torch versions (``lda_l2r``: every per-position score [L, B]
+   within rtol 1e-5 / atol 1e-6, and the sums over L), and times both
+   (median of CUDA-event timings after warm-up), at the paper's node
+   shape (K=5, V=1,000, L=32) and at
    every shape the serving path launches at K=100, V=50,000: the G-OEM
    E-step (B=256, L=64, 30 sweeps, Poisson(10) lengths), each bucket's
    mixture slab (B=64, L=16/32/64, 8 sweeps) and "ll" slab (B=64, P=10),
@@ -33,9 +35,10 @@
    those shapes receive (Poisson(10) documents): ``gossip_mix`` exactly
    (max error 0) at [n=50, K=5, V=100] with one pair and at [50, 100,
    50,000] with 25 pairs and one pair; ``lda_gibbs`` at the fused E-steps
-   (B = 20 G-OEM, 40 async, 1,000 sync; 30 sweeps) and ``lda_l2r`` at the
-   held-out sets (B = 100, and 3 probe nodes x 100 in the loop; P=10),
-   both at the paper's K=5, V=100, L=32 and at K=100, V=50,000, L=64.
+   (B = 20 G-OEM, 40 async, 1,000 sync; 30 sweeps) and ``lda_l2r`` (per
+   position, as in step 3) at the held-out sets (B = 100, and 3 probe
+   nodes x 100 in the loop; P=10), both at the paper's K=5, V=100, L=32
+   and at K=100, V=50,000, L=64.
    Then, each with the launch counters set to 0 just before and read just
    after. The wrappers count launches by shape; every launch must fall on
    a held shape, and each shape's count must equal the rule (one
@@ -107,12 +110,14 @@
    decode steps under ``torch.profiler``.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
-   counted launches; K2's and K4's shapes also carry ``chain_ms``, the
-   bound of their design, which makes a document's draws one after
-   another: S x the longest document's active positions x K dependent
-   adds at this run's t_add, beside the bytes and operations bound), one
-   line each of serving, DELEDA, unique-layout and LM-serving numbers
-   with the card, and the script's seconds.
+   counted launches; K2's, K3's and K4's shapes also carry ``chain_ms``,
+   the bound of their designs, which make a document's draws (K3: a
+   particle's steps) one after another: K2 and K4, S x the longest
+   document's active positions x K dependent adds; K3, the most K-add
+   chains a document's particle makes, E(E+1)/2 for E active positions
+   (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
+   operations bound), one line each of serving, DELEDA, unique-layout
+   and LM-serving numbers with the card, and the script's seconds.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -305,6 +310,25 @@ def _chain_ms(rt, s, longest, k):
     return s * longest * k * rt.t_add_ns * 1e-6
 
 
+def _l2r_chain_ms(rt, weights, k):
+    """The chain bound of K3, whose design makes a particle's steps one
+    after another, each ``k`` dependent float32 adds in the plain
+    version's association, at this run's t_add. A document makes, at every
+    position n up to its last weighted one, one chain for each weighted
+    position before n (its resample) and, where n is weighted, one more
+    (the draw of z_n; the score's p_w sum runs beside it). A weight-0 slot
+    is never resampled and draws nothing, but the positions before it
+    still resample there, as in the plain version. Without such a slot
+    inside the document, E weighted positions make E(E+1)/2 chains. The
+    bound is the largest count over the documents (``weights`` [B, L])."""
+    act = (weights > 0).long()
+    before = torch.cumsum(act, -1) - act          # weighted i < n
+    n = torch.arange(act.shape[-1], device=act.device)
+    last = torch.where(act > 0, n, -1).max(-1).values   # -1: none
+    steps = (before * (n <= last[:, None])).sum(-1) + act.sum(-1)
+    return float(steps.max()) * k * rt.t_add_ns * 1e-6
+
+
 def _start_add_chain(rt):
     """Starts nvcc on the t_add probe; returns the process and library."""
     out = rt.common.BUILD_DIR / "probe"
@@ -428,7 +452,10 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
 def _hold_l2r(rt, dev, case, k, v, seed):
     """The kernel against its plain version at one shape, and their times.
 
-    ``case["cw"]``: the count-weighted mode (weights are counts)."""
+    Every per-position score [L, B] within rtol 1e-5 / atol 1e-6 (a flipped
+    draw moves every later score of its particle), and the sums over L
+    within rtol 1e-5. ``case["cw"]``: the count-weighted mode (weights are
+    counts)."""
     b, l, p, cw = case["b"], case["l"], case["p"], case.get("cw", False)
     _w, bw, mf, _u, _z = _inputs(rt, dev, case, k, v, seed)
     kd = rt.tf3.fold_in_data(rt.tf3.key(seed, dev),
@@ -440,19 +467,29 @@ def _hold_l2r(rt, dev, case, k, v, seed):
         lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p,
                                       count_weighted=cw),
         reps=7, device_only=True)
-    got = rt.evaluation._sum_positions(got)
-    want = rt.evaluation._sum_positions(want)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    shape = f"B={b} L={l} K={k} P={p}" + (" count-weighted" if cw else "")
+    close = torch.isclose(got.double(), want.double(), rtol=1e-5, atol=1e-6)
+    bad = torch.nonzero(~close.all(0)).flatten()
+    if len(bad):
+        raise AssertionError(
+            f"lda_l2r disagrees with its plain version per position at "
+            f"{shape}: {len(bad)} documents, first {bad[:8].tolist()}, max "
+            f"abs err {float((got - want).abs().max()):.3g}")
+    torch.testing.assert_close(rt.evaluation._sum_positions(got),
+                               rt.evaluation._sum_positions(want),
+                               rtol=1e-5, atol=0)
     err = float((got - want).abs().max())
     lens = (mf > 0).sum(-1).double()
     bound, by = _l2r_bound(b, l, k, p, lens)
-    shape = f"B={b} L={l} K={k} P={p}" + (" count-weighted" if cw else "")
-    print(f"lda_l2r vs plain at {shape}: max_abs_err {err:.3g}; {ms:.3f} ms "
-          f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by}) | "
-          f"{rt.card}", flush=True)
+    chain = _l2r_chain_ms(rt, mf, k)
+    print(f"lda_l2r vs plain at {shape}: per-position max_abs_err "
+          f"{err:.3g}; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{bound:.5f} ms by {by}, chain {chain:.4f} ms) | {rt.card}",
+          flush=True)
     return dict(name="lda_l2r", key=(b, l, k, p, cw), shape=shape, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                active_tokens=int(lens.sum()), max_abs_err=err, launches=0)
+                chain_ms=chain, active_tokens=int(lens.sum()),
+                max_abs_err=err, launches=0)
 
 
 def _sparse_bound(b, u, k, s, burnin, active):
@@ -1754,6 +1791,7 @@ def _kernel_line(name, route, source, replaces, rows, node_err):
             "max_abs_err": max([node_err] + [r["max_abs_err"] for r in rows]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "chain_ms": top.get("chain_ms"),
             "library_ms": None, "shape": top["shape"],
             "active_tokens": top.get("active_tokens"), "per_shape": rows}
 

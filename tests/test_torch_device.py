@@ -325,6 +325,110 @@ def test_count_weighted_l2r_matches_plain_on_card(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
 
+# every G = ceil(K / 16) instance of K3, P from one warp of one particle
+# to warps of two and three particles, B from 1 to more documents than an
+# H100 has SMs (its blocks then take the documents longest first)
+L2R_CASES = [(k, p, b) for k in (1, 5, 16, 17, 31, 32, 33, 100, 128)
+             for p, b in ((1, 7), (3, 133), (10, 7), (32, 1), (33, 7))]
+
+
+def _edge_keys(b, p, rng):
+    """[B, 2] key words; with B >= 7, documents 3 and 4 take the keys whose
+    first draw (position 0, particle 0) is the smallest and the largest
+    uniform of 4,096 candidates (within about 2.4e-4 of 0 and of 1)."""
+    from repro_torch.core import threefry as tf3
+
+    kd = torch.from_numpy(rng.integers(0, 2 ** 32, (b, 2), dtype=np.int64))
+    if b >= 7:
+        cand = torch.from_numpy(rng.integers(0, 2 ** 32, (4096, 2),
+                                             dtype=np.int64))
+        dr = tf3.split2_data(tf3.fold_in_data(cand, 0))[1]
+        u0 = tf3.uniform_halves(dr, p)[:, 0]
+        kd[3], kd[4] = cand[u0.argmin()], cand[u0.argmax()]
+    return kd
+
+
+@pytest.mark.parametrize("k,p,b", L2R_CASES, ids=lambda v: str(v))
+def test_l2r_matches_plain_per_position_on_card(cuda_device, k, p, b):
+    """K3 (a warp per particle chain) against its plain version, every
+    per-position score [L, B] within rtol 1e-5 / atol 1e-6, in both modes.
+    Dense documents: with B >= 7, an empty one, one whose only position is
+    its last, one of one position and one of full length; count-weighted
+    ones with weight-0 slots inside them; keys whose first draw is near 0
+    and near 1. One launch counted at each shape."""
+    from repro_torch.core import evaluation
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    rng = np.random.default_rng(k * 1000 + p * 10 + b)
+    n = 24
+    bw = rng.random((b, n, k), dtype=np.float32) + 1e-3
+    mask = (np.arange(n)[None, :] < rng.integers(1, n + 1, (b, 1))).astype(
+        np.float32)
+    counts = rng.integers(0, 4, (b, n)).astype(np.float32)
+    if b >= 7:
+        mask[1] = 0.0
+        mask[2] = 0.0
+        mask[2, -1] = 1.0
+        mask[5] = 0.0
+        mask[5, 0] = 1.0
+        mask[6] = 1.0
+        counts[1] = 0.0
+    kd = _edge_keys(b, p, rng).to(cuda_device)
+    bw = torch.from_numpy(bw).to(cuda_device)
+    for cw, w in ((False, mask), (True, counts)):
+        w = torch.from_numpy(w).to(cuda_device)
+        shape = (b, n, k, p, cw)
+        before = l2r_ops.launches_by_shape.get(shape, 0)
+        got = l2r_ops.l2r_scores(kd, bw, w, 0.5, n_particles=p,
+                                 count_weighted=cw)
+        torch.cuda.synchronize()
+        assert l2r_ops.launches_by_shape[shape] == before + 1
+        want = evaluation.l2r_position_scores(kd, bw, w, 0.5, p, cw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_l2r_matches_plain_per_position_at_length_256_on_card(cuda_device):
+    """K3 at L = 256 (the Zipf corpus's cap) and K=100, P=10: a dense
+    document of full length and one of 200 positions, and the
+    count-weighted view of such documents at U = L (distinct words first,
+    then padding slots), per position within rtol 1e-5 / atol 1e-6."""
+    from repro_torch.core import estep, evaluation
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    rng = np.random.default_rng(256)
+    b, n, k, v = 2, 256, 100, 300
+    words = torch.from_numpy(rng.integers(0, v, (b, n)))
+    mask = torch.arange(n)[None, :] < torch.tensor([[n], [200]])
+    stats = torch.from_numpy(rng.random((k, v), dtype=np.float32))
+    kd = _edge_keys(b, 10, rng).to(cuda_device)
+    uw, counts = estep.dense_to_unique(words, mask)
+    for cw, wd, w in ((False, words, mask), (True, uw, counts)):
+        bw = estep.beta_w_from_stats(stats, wd, 1e-2).to(cuda_device)
+        w = w.float().to(cuda_device)
+        got = l2r_ops.l2r_scores(kd, bw, w, 0.5, n_particles=10,
+                                 count_weighted=cw)
+        want = evaluation.l2r_position_scores(kd, bw, w, 0.5, 10, cw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_l2r_refuses_what_it_does_not_take_on_card(cuda_device):
+    """K3 raises a ValueError, and counts nothing, for K=129 topics, for 0
+    and 1,025 particles, and for documents whose list of active positions
+    and topic rows do not fit a block's shared memory (40,000 positions)."""
+    from repro_torch.kernels.lda_l2r import ops as l2r_ops
+
+    for k, p, n, what in ((129, 10, 8, "topics"), (5, 0, 8, "n_particles"),
+                          (5, 1025, 8, "n_particles"),
+                          (2, 1, 40_000, "shared memory")):
+        kd = torch.zeros((1, 2), dtype=torch.int64, device=cuda_device)
+        before = l2r_ops.launches
+        with pytest.raises(ValueError, match=what):
+            l2r_ops.l2r_scores(kd, torch.rand((1, n, k), device=cuda_device),
+                               torch.ones((1, n), device=cuda_device), 0.5,
+                               n_particles=p)
+        assert l2r_ops.launches == before
+
+
 def test_attention_on_a_non_cpu_device_is_never_served_by_plain_code():
     """flash_attention, like the other wrappers, refuses a tensor that is
     neither on the CPU nor on a CUDA device instead of falling back."""

@@ -228,3 +228,42 @@ def test_count_weighted_scores_on_cpu_are_the_plain_version():
         kd, beta_w, counts, ALPHA, 2, count_weighted=True))
     plain = evaluation.l2r_position_scores(kd, beta_w, counts, ALPHA, 2)
     assert torch.equal(got, torch.where(counts.T > 0, 2 * plain, plain))
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s module (its K3 chain bound), without running it."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_l2r", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _scan_steps(w):
+    """The K-add chains one particle of the plain scan makes on a document
+    of weights ``w``: at every position n up to the last weighted one, a
+    resample of each weighted i < n, and the draw of z_n where w[n] > 0."""
+    act = [x > 0 for x in w]
+    end = max((i + 1 for i, a in enumerate(act) if a), default=0)
+    return sum(sum(act[:n]) for n in range(end)) + sum(act)
+
+
+@pytest.mark.parametrize("case,weights,chains", [
+    # dense prefixes of 0, 1, 5 and 12 positions: E(E+1)/2 at E = 12
+    ("dense", [[1] * e + [0] * (12 - e) for e in (0, 1, 5, 12)], 78),
+    # the unique layout's counts, padding slots at the end: E = 3
+    ("counts", [[3, 1, 2, 0, 0, 0], [1, 0, 0, 0, 0, 0]], 6),
+    # a weight-0 slot inside: never resampled, no draw, but position 0 is
+    # resampled there (1 + 1 + 2 + 3 chains)
+    ("gap", [[1, 0, 1, 1, 0, 0]], 7),
+])
+def test_l2r_chain_bound_counts_the_scans_chains(case, weights, chains):
+    smoke = _chip_smoke()
+    w = torch.tensor(weights, dtype=torch.float32)
+    assert max(_scan_steps(row) for row in weights) == chains
+    rt = type("Rt", (), {"t_add_ns": 2.0})()
+    assert smoke._l2r_chain_ms(rt, w, 100) == pytest.approx(
+        chains * 100 * 2.0e-6)

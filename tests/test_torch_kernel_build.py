@@ -15,7 +15,7 @@ pytest.importorskip("torch")
 from repro_torch.kernels import common  # noqa: E402
 
 SHARED = "gibbs_warp.cuh"
-USERS = ("lda_gibbs", "lda_sparse")
+USERS = ("lda_gibbs", "lda_l2r", "lda_sparse")
 
 
 @pytest.fixture
