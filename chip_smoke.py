@@ -64,7 +64,22 @@
    - a trajectory check at the golden test's shapes (K=3, V=20, L=8,
      N=8, T=20): the CUDA path against the CPU plain path from the same
      inputs (steps equal, mass rtol 1e-4, probe rtol 3e-3, LP rtol 1e-5),
-     in both corpus layouts.
+     in both corpus layouts;
+   - the lifecycle (slice 8) at full width: 40 sync matching rounds on
+     the complete graph with forgetting (decay (5, 0.8)) on a streamed
+     corpus refreshed every 20 rounds, LP every 20, saved every 20
+     rounds; the kill (step 40 deleted, an uncommitted step-40 directory
+     with only its sidecar left); the run resumed from step 20, which
+     must equal the uninterrupted one bit for bit (stats, steps, the last
+     record, consensus and LP) and launch what its 20 rounds and one eval
+     imply; ``serve_topics --restore-train`` serving node 3 of the
+     resumed run's checkpoint (512 requests, closed loop), its statistic
+     equal to the run's node 3 and its answers checked as in step 3; and
+     at the golden shapes a CPU checkpoint at T/2 resumed on the card,
+     against the CPU's uninterrupted run at the trajectory check's
+     tolerances. One ``lifecycle`` line: checkpoint bytes, save and
+     restore seconds, the stream's segment draw, the resumed rounds/s
+     and peak memory, the served req/s and the card.
 5. The unique-token (CSR) layout (slice 3). ``lda_sparse`` on counts in
    {0, 1} must give ``lda_gibbs``'s bits. Then the full width at L=256 on
    a Zipf corpus (``launch/sparse_bench``'s: Zipf(2.2) words,
@@ -116,8 +131,9 @@
    document's active positions x K dependent adds; K3, the most K-add
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
-   operations bound), one line each of serving, DELEDA, unique-layout
-   and LM-serving numbers with the card, and the script's seconds.
+   operations bound), one line each of serving, DELEDA, unique-layout,
+   LM-serving and lifecycle numbers with the card, and the script's
+   seconds.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -132,6 +148,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -205,6 +222,11 @@ ZFULL = dict(FULL, l=256)
 SPARSE_SRC = "src/repro_torch/kernels/lda_sparse/csrc/lda_sparse.cu"
 SPARSE_TPU = "src/repro/kernels/lda_sparse/lda_sparse.py:53"
 GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
+# the lifecycle phase: FULL's sync run with forgetting (the reference
+# tests' decay), a stream refreshed every FULL["every"] rounds, and the
+# requests --restore-train serves from node 3
+LIFE_DECAY = (5.0, 0.8)
+LIFE_REQUESTS = 512
 # the LM slice: gemma2-2b at full width served through launch/serve, and
 # one prefill at S=8192 (the catalog's prefill_32k cut: its [32, 32768,
 # 256000] logits alone would be 537 GB in bf16)
@@ -680,6 +702,7 @@ class _Port:
 
     def __init__(self):
         sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch import checkpoint
         from repro_torch.core import comm, deleda, estep, evaluation, graph
         from repro_torch.core import serving
         from repro_torch.core import lda
@@ -701,7 +724,7 @@ class _Port:
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
-        self.data, self.comm = lda_synthetic, comm
+        self.data, self.comm, self.checkpoint = lda_synthetic, comm, checkpoint
         self.common, self.gibbs_ops, self.l2r_ops = common, gibbs_ops, l2r_ops
         self.mix_ops, self.mix_ref = mix_ops, mix_ref
         self.sparse_ops, self.sparse_bench = sparse_ops, sparse_bench
@@ -1085,6 +1108,206 @@ def _zipf_cases(rt, corpus, u_max):
                   dict(kv, b=tw.shape[0], l=f["l"], p=10, cw=True,
                        docs=(tuw, tc))))
     return cases
+
+
+def _timed(fn, out: list):
+    """``fn`` wrapped to append its wall seconds (the card drained on both
+    sides) to ``out``."""
+    def wrapper(*args, **kw):
+        secs, res = _seconds(lambda: fn(*args, **kw))
+        out.append(secs)
+        return res
+    return wrapper
+
+
+def _resume_across_devices(rt, dev):
+    """At the golden test's shapes: the CPU runs T/2 rounds and saves, the
+    card resumes from that checkpoint; the result against the CPU's
+    uninterrupted run at ``_trajectory_check``'s tolerances."""
+    gsz = GOLDEN
+    cfg_lda = rt.lda.LDAConfig(n_topics=gsz["k"], vocab_size=gsz["v"],
+                               alpha=0.5, doc_len_max=gsz["l"], n_gibbs=4,
+                               n_gibbs_burnin=2)
+    corpus = rt.data.make_corpus(cfg_lda, rt.tf3.key(0),
+                                 rt.data.CorpusSpec(n_nodes=gsz["n"],
+                                                    docs_per_node=4,
+                                                    n_test=4))
+    sched, degs = rt.deleda.make_run_inputs(
+        rt.graph.watts_strogatz_graph(gsz["n"], 4, 0.3, seed=0), gsz["t"],
+        seed=0, kind="matching")
+    cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode="sync", batch_size=2,
+                                 eval_every=10, decay=(5.0, 0.8))
+
+    def run(d, **kw):
+        spec = rt.evaluation.EvalSpec(
+            words=corpus.test_words.to(d), mask=corpus.test_mask.to(d),
+            key=rt.tf3.key(7, d), n_particles=4, probe_nodes=2)
+        return rt.deleda.run_deleda(
+            cfg, rt.tf3.key(1, d), corpus.words.to(d), corpus.mask.to(d),
+            sched, degs, gsz["t"], record_every=10, eval_spec=spec, **kw)
+
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as d:
+        full = run(cpu, save_every=gsz["t"] // 2, checkpoint_dir=d)
+        _kill_step(d, gsz["t"])
+        resumed = run(dev, restore_from=d)
+    where = "lifecycle: CPU checkpoint at T/2 resumed on the card"
+    if resumed.stats.device.type != dev.type:
+        raise AssertionError(f"{where}: the resumed run left the card")
+    sa, sb = full.stats.double(), resumed.stats.double().cpu()
+    mass = abs(float(sb.sum()) / float(sa.sum()) - 1.0)
+    pa, pb = sa[::3, 1, ::7], sb[::3, 1, ::7]
+    la, lb = full.eval_lp[-1].double(), resumed.eval_lp[-1].double().cpu()
+    if (full.steps.tolist() != resumed.steps.cpu().tolist() or mass > 1e-4
+            or not torch.allclose(pb, pa, rtol=3e-3, atol=1e-5)
+            or not torch.allclose(lb, la, rtol=1e-5, atol=0)):
+        raise AssertionError(f"{where}: steps {full.steps.tolist()} / "
+                             f"{resumed.steps.tolist()}, mass rel diff "
+                             f"{mass}, probe {pa} / {pb}, LP {la} / {lb}")
+    out = {"mass_rel_diff": mass,
+           "probe_max_abs_diff": float((pb - pa).abs().max()),
+           "eval_lp_max_rel_diff": float(((lb - la) / la).abs().max())}
+    print(f"{where}: {out}", flush=True)
+    return out
+
+
+def _kill_step(directory, step):
+    """The kill: delete step ``step``'s checkpoint and leave in its place
+    an uncommitted directory holding only a sidecar (a save cut between
+    its meta.json and its state.npz)."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    shutil.rmtree(path)
+    os.makedirs(path)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        f.write("{}")
+
+
+def _drive_lifecycle(rt, dev, full_rows, cases, serve_rows):
+    """The lifecycle phase (slice 8) at full width: 40 sync rounds of
+    matchings on the complete graph with forgetting, on a streamed corpus
+    that refreshes every 20 rounds, saved every 20 rounds; the kill; the
+    resumed run (which saves step 40 again), which must equal the
+    uninterrupted one bit for bit and launch what its 20 rounds and one
+    eval imply; node 3 of that checkpoint served by ``serve_topics
+    --restore-train``; a CPU checkpoint resumed on the card. Launches go
+    to the held rows of their shapes. The resumed rounds/s leaves out
+    its restore and its save, which are timed apart."""
+    f = FULL
+    cfg_lda = rt.lda.LDAConfig(n_topics=f["k"], vocab_size=f["v"],
+                               alpha=0.5, doc_len_max=f["l"], n_gibbs=30,
+                               n_gibbs_burnin=15)
+    stream = rt.data.make_corpus_stream(
+        cfg_lda, rt.tf3.key(0, dev),
+        rt.data.CorpusSpec(n_nodes=f["n"], docs_per_node=f["docs"],
+                           n_test=f["n_test"], refresh_every=f["every"]))
+    draw_s, _ = _seconds(lambda: stream.segment(1))
+    spec = rt.evaluation.EvalSpec(words=stream.base.test_words,
+                                  mask=stream.base.test_mask,
+                                  key=rt.tf3.key(1, dev), n_particles=10,
+                                  probe_nodes=f["probes"])
+    sched, degs = rt.deleda.make_run_inputs(
+        rt.graph.complete_graph(f["n"]), f["rounds"], seed=0,
+        kind="matching")
+    cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode="sync",
+                                 batch_size=f["batch"],
+                                 eval_every=f["every"], decay=LIFE_DECAY)
+    half = f["rounds"] // 2
+    saves, restores = [], []
+    real_save, real_restore = rt.deleda.save_state, rt.deleda.restore_state
+    rt.deleda.save_state = _timed(real_save, saves)
+    rt.deleda.restore_state = _timed(real_restore, restores)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            def run(**kw):
+                return rt.deleda.run_deleda(
+                    cfg, rt.tf3.key(3, dev), None, None, sched, degs,
+                    f["rounds"], record_every=f["every"], eval_spec=spec,
+                    stream=stream, **kw)
+
+            rt.zero_counts()
+            wall, full = _seconds(lambda: run(save_every=half,
+                                              checkpoint_dir=d))
+            got = _tally(rt, full_rows, "lifecycle uninterrupted")
+            e = _expected("sync", sched, f["every"])
+            _check_phases("lifecycle uninterrupted", got,
+                          {"full_sync_mix": e["gossip_mix"],
+                           "full_sync": e["lda_gibbs"],
+                           "full_inloop": e["lda_l2r"]})
+            ckpt_bytes = os.path.getsize(os.path.join(
+                d, f"step_{f['rounds']:08d}", "state.npz"))
+            _kill_step(d, f["rounds"])
+            if rt.checkpoint.latest_step(d) != half:
+                raise AssertionError("lifecycle: the uncommitted directory "
+                                     "was taken for a checkpoint")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()   # the uninterrupted trace
+            rt.zero_counts()
+            r_wall, resumed = _seconds(lambda: run(
+                restore_from=d, save_every=half, checkpoint_dir=d))
+            peak = torch.cuda.max_memory_allocated()
+            got = _tally(rt, full_rows, "lifecycle resumed")
+            e = _expected("sync", rt.comm.GossipSchedule(
+                sched.kind, sched.data[half:], f["n"]), f["every"])
+            _check_phases("lifecycle resumed", got,
+                          {"full_sync_mix": e["gossip_mix"],
+                           "full_sync": e["lda_gibbs"],
+                           "full_inloop": e["lda_l2r"]})
+            same = {
+                "stats": torch.equal(full.stats, resumed.stats),
+                "steps": torch.equal(full.steps, resumed.steps),
+                "history": torch.equal(full.history[-1],
+                                       resumed.history[-1]),
+                "consensus": torch.equal(full.consensus[-1],
+                                         resumed.consensus[-1]),
+                "eval_lp": torch.equal(full.eval_lp[-1],
+                                       resumed.eval_lp[-1])}
+            if not all(same.values()) or resumed.state.cursor != 1:
+                raise AssertionError(f"lifecycle: the resumed run differs "
+                                     f"from the uninterrupted one: {same}, "
+                                     f"cursor {resumed.state.cursor}")
+            lp = resumed.eval_lp
+            if not (bool(torch.isfinite(lp).all())
+                    and bool(torch.isfinite(resumed.stats).all())):
+                raise AssertionError(f"lifecycle: non-finite output {lp}")
+            node3 = full.stats[3].clone()
+            del full, resumed
+            torch.cuda.empty_cache()
+            argv = ["--restore-train", d, "--restore-node", "3",
+                    "--restore-nodes", str(f["n"]), "--topics",
+                    str(f["k"]), "--vocab", str(f["v"]), "--doc-len",
+                    str(f["l"]), "--requests", str(LIFE_REQUESTS),
+                    "--mixture-frac", "0.25", "--particles",
+                    str(PARTICLES), "--request-len", "uniform",
+                    "--closed-loop", "--device", "cuda"]
+            served = _drive(rt, dev, argv, cases, serve_rows,
+                            trained=False)
+            if not torch.equal(served["serving_state"].stats, node3):
+                raise AssertionError("lifecycle: --restore-train served "
+                                     "another row than node 3's")
+    finally:
+        rt.deleda.save_state, rt.deleda.restore_state = (real_save,
+                                                         real_restore)
+    # restores[0] is the resumed run's (on the card), restores[1] the
+    # --restore-train one (on the host, before node 3's row moves)
+    restore_s = restores[0]
+    out = {"rounds": f["rounds"], "resumed_rounds": half,
+           "decay": list(LIFE_DECAY), "refresh_every": f["every"],
+           "checkpoint_bytes": ckpt_bytes, "save_s": saves,
+           "restore_s": restore_s, "serve_restore_s": restores[1],
+           "segment_draw_s": draw_s,
+           "uninterrupted_wall_s": wall, "resumed_wall_s": r_wall,
+           "resumed_rounds_per_s": half / (r_wall - restore_s
+                                           - saves[-1]),
+           "resumed_peak_mem_gb": peak / 1e9,
+           "held_before_resume_gb": held / 1e9,
+           "served_req_per_s": served["req_per_s"],
+           "served_requests": len(served["results"]),
+           "cross_device": _resume_across_devices(rt, dev),
+           "card": rt.card}
+    print(f"lifecycle: {json.dumps(out)}", flush=True)
+    return out
 
 
 def _drive_zipf(rt, dev, mix_rows):
@@ -1915,6 +2138,9 @@ def main() -> int:
     full = _drive_full(rt, dev, full_rows, *_full_width_inputs(rt, dev))
     torch.cuda.empty_cache()
     profile = _profile_rounds(rt, dev)
+    torch.cuda.empty_cache()
+    # phase 5b: the lifecycle (slice 8): save, kill, resume, serve a node
+    life = _drive_lifecycle(rt, dev, full_rows, cases, rows)
 
     # phase 6: the unique-token layout (slice 3), shapes held in each
     node_err["lda_sparse"] = _check_sparse_binary(rt, dev)
@@ -1959,6 +2185,7 @@ def main() -> int:
                                         "sparse_bench": bench,
                                         "card": card}}))
     print(json.dumps({"lm_serving": lm}))
+    print(json.dumps({"lifecycle": life}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

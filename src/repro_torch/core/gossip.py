@@ -148,10 +148,22 @@ def mixing_matrix_matching(partners: np.ndarray) -> np.ndarray:
     return w
 
 
-def consensus_distance(stats: torch.Tensor) -> torch.Tensor:
-    """||S - mean(S) 1^T||_F — the left side of paper eq. (3), float32."""
-    mean = stats.mean(dim=0, keepdim=True)
-    return torch.linalg.vector_norm((stats - mean).reshape(-1))
+def consensus_distance(stats: torch.Tensor,
+                       member: torch.Tensor | None = None) -> torch.Tensor:
+    """||S - mean(S) 1^T||_F — the left side of paper eq. (3), float32.
+
+    ``member`` ([n] bool) restricts the mean and the norm to the member
+    nodes, as the reference does (a node not yet joined, or gone, holds
+    statistics that say nothing of the network's agreement); None is the
+    unmasked computation, bit for bit.
+    """
+    if member is None:
+        mean = stats.mean(dim=0, keepdim=True)
+        return torch.linalg.vector_norm((stats - mean).reshape(-1))
+    w = member.to(stats.dtype).reshape((-1,) + (1,) * (stats.dim() - 1))
+    count = torch.clamp(member.sum(), min=1).to(stats.dtype)
+    mean = (stats * w).sum(dim=0, keepdim=True) / count
+    return torch.linalg.vector_norm(((stats - mean) * w).reshape(-1))
 
 
 def consensus_envelope(lambda2: float, rhos: np.ndarray,

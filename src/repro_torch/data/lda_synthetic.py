@@ -21,7 +21,13 @@ parity tests hand the reference's corpus arrays to the port instead.
 The port's corpus is a function of its key alone: it is drawn and
 shaped on the CPU and moved to the key's device at the end, so a CUDA
 run and a CPU run of one seed train on the same corpus.
-Not ported: topic skew, streaming corpora.
+
+A streaming corpus (:class:`CorpusStream`, ``CorpusSpec.refresh_every``)
+re-draws every node's training shard every ``refresh_every`` rounds while
+beta* and the held-out set stay fixed; ``run_deleda(stream=)`` swaps it
+in between segments. Its segment s >= 1 draws from ``split(fold_in(
+fold_in(key, 0x5EA5), s))``, on the CPU as the base corpus is. Not
+ported: topic skew (the document priors are the symmetric alpha).
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ from repro_torch.core.estep import unique_view
 from repro_torch.core.lda import (LDAConfig, generator_from_key,
                                   sample_documents, sample_topic_matrix)
 
-__all__ = ["CorpusSpec", "SyntheticCorpus", "make_corpus",
-           "LENGTH_TRUNCATION_WARN_FRAC"]
+__all__ = ["CorpusSpec", "SyntheticCorpus", "make_corpus", "CorpusStream",
+           "make_corpus_stream", "LENGTH_TRUNCATION_WARN_FRAC"]
 
 # warn when more than this share of drawn lengths was clipped into
 # [2, doc_len_max]: the realized lengths no longer follow the spec
@@ -92,8 +98,14 @@ class CorpusSpec:
     zipf_exponent: float | None = None
     # (mu, sigma): lengths round(exp(mu + sigma * N(0, 1))), not Poisson
     doc_len_lognormal: tuple[float, float] | None = None
+    # a streaming corpus re-draws the training shards every this many
+    # gossip rounds (make_corpus_stream); 0 = the frozen corpus
+    refresh_every: int = 0
 
     def __post_init__(self):
+        if self.refresh_every < 0:
+            raise ValueError(f"refresh_every must be >= 0 (0 = frozen), "
+                             f"got {self.refresh_every}")
         if self.zipf_exponent is not None and self.zipf_exponent <= 0.0:
             raise ValueError(f"zipf_exponent must be positive, "
                              f"got {self.zipf_exponent}")
@@ -130,6 +142,19 @@ def _zipf_envelope(beta_star: torch.Tensor, exponent: float) -> torch.Tensor:
     return out / out.sum(dim=-1, keepdim=True)
 
 
+def _draw_training_shards(config: LDAConfig, spec: CorpusSpec,
+                          beta_star: torch.Tensor, k_len: torch.Tensor,
+                          k_doc: torch.Tensor):
+    """One draw of every node's ``[D, L]`` training shard on the CPU:
+    (words, mask, the lengths' clipped mask)."""
+    n_train = spec.n_nodes * spec.docs_per_node
+    lengths, trunc = _lengths(k_len, spec, n_train, config.doc_len_max)
+    words, mask = sample_documents(config, generator_from_key(k_doc),
+                                   beta_star, lengths)
+    shape = (spec.n_nodes, spec.docs_per_node, config.doc_len_max)
+    return words.reshape(shape), mask.reshape(shape), trunc
+
+
 def make_corpus(config: LDAConfig, key: torch.Tensor,
                 spec: CorpusSpec = CorpusSpec()) -> SyntheticCorpus:
     """The node-sharded corpus and held-out set, on the key's device
@@ -140,10 +165,8 @@ def make_corpus(config: LDAConfig, key: torch.Tensor,
                                     spec.topic_concentration)
     if spec.zipf_exponent is not None:
         beta_star = _zipf_envelope(beta_star, spec.zipf_exponent)
-    n_train = spec.n_nodes * spec.docs_per_node
-    lengths, trunc = _lengths(k_len, spec, n_train, config.doc_len_max)
-    words, mask = sample_documents(config, generator_from_key(k_doc),
-                                   beta_star, lengths)
+    words, mask, trunc = _draw_training_shards(config, spec, beta_star,
+                                               k_len, k_doc)
     if spec.test_len_uniform:
         t_lengths = torch.randint(2, config.doc_len_max + 1, (spec.n_test,),
                                   generator=generator_from_key(k_tlen))
@@ -153,17 +176,70 @@ def make_corpus(config: LDAConfig, key: torch.Tensor,
                                       config.doc_len_max)
     t_words, t_mask = sample_documents(config, generator_from_key(k_tdoc),
                                        beta_star, t_lengths)
-    shape = (spec.n_nodes, spec.docs_per_node, config.doc_len_max)
     trunc_frac = float(torch.cat([trunc, t_trunc]).float().mean())
     if trunc_frac > LENGTH_TRUNCATION_WARN_FRAC:
         warnings.warn(
             f"{trunc_frac:.1%} of drawn document lengths fell outside "
             f"[2, doc_len_max={config.doc_len_max}] and were clipped; the "
             f"realized lengths are biased", stacklevel=2)
-    return SyntheticCorpus(words=words.reshape(shape).to(dev),
-                           mask=mask.reshape(shape).to(dev),
+    return SyntheticCorpus(words=words.to(dev), mask=mask.to(dev),
                            test_words=t_words.to(dev),
                            test_mask=t_mask.to(dev),
                            beta_star=beta_star.to(dev),
                            alpha_star=config.alpha,
                            length_truncation_frac=trunc_frac)
+
+
+# the fold_in lane of the streaming re-draw keys (the reference's)
+_STREAM_SALT = 0x5EA5
+
+
+@dataclasses.dataclass(frozen=True)
+class CorpusStream:
+    """A streaming view of a synthetic corpus.
+
+    Segment 0 is the base corpus, ``make_corpus`` with the same (config,
+    key, spec). Segment s >= 1 re-draws every node's training shard
+    (lengths and words) from ``split(fold_in(fold_in(key, 0x5EA5), s))``
+    with beta* and the held-out set fixed, on the CPU, and returns it on
+    the key's device: segment s is a function of the stream alone, so a
+    restored run re-draws the shard an uninterrupted one used.
+    """
+
+    config: LDAConfig
+    key: torch.Tensor
+    spec: CorpusSpec
+    base: SyntheticCorpus
+
+    @property
+    def refresh_every(self) -> int:
+        return self.spec.refresh_every
+
+    @property
+    def n_nodes(self) -> int:
+        return self.spec.n_nodes
+
+    def segment(self, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(words, mask) ``[n, D, L]`` of streaming segment ``s``."""
+        if s < 0:
+            raise ValueError(f"segment index must be >= 0, got {s}")
+        if s == 0:
+            return self.base.words, self.base.mask
+        k_seg = tf3.fold_in_data(
+            tf3.fold_in_data(self.key.cpu(), _STREAM_SALT), s)
+        k_len, k_doc = tf3.split(k_seg)
+        words, mask, _ = _draw_training_shards(
+            self.config, self.spec, self.base.beta_star.cpu(), k_len, k_doc)
+        return words.to(self.key.device), mask.to(self.key.device)
+
+
+def make_corpus_stream(config: LDAConfig, key: torch.Tensor,
+                       spec: CorpusSpec) -> CorpusStream:
+    """The streaming corpus of ``spec.refresh_every > 0`` rounds a
+    segment, on the key's device."""
+    if spec.refresh_every <= 0:
+        raise ValueError("make_corpus_stream needs spec.refresh_every > 0 "
+                         f"(got {spec.refresh_every}); use make_corpus for "
+                         "a frozen corpus")
+    return CorpusStream(config=config, key=key, spec=spec,
+                        base=make_corpus(config, key, spec))

@@ -1,8 +1,10 @@
 """Topic-inference serving launcher: one node answering live queries.
 
 The torch counterpart of ``repro.launch.serve_topics``. It trains a G-OEM
-statistic (the ``lda_gibbs`` kernel on the card) or restores one from a
-checkpoint (the JAX package's checkpoints restore too), wraps it in the
+statistic (the ``lda_gibbs`` kernel on the card), restores one from a
+checkpoint, or serves node ``--restore-node`` of a DELEDA training
+checkpoint (``--restore-train``; either package's, dense or written
+with ``--restore-vocab-shards`` S > 1), and wraps it in the
 staleness-aware :class:`ServingState` cache, and drives a seeded
 open-loop Poisson stream of ``"ll"`` queries (the ``lda_l2r`` kernel)
 and ``"mixture"`` queries (the ``lda_gibbs`` kernel) through the
@@ -16,6 +18,9 @@ N`` publishes a fresh statistic every N slabs mid-serve.
   PYTHONPATH=src python -m repro_torch.launch.serve_topics --topics 100 \
       --vocab 50000 --doc-len 64 --train-batch 256 --requests 2048 \
       --request-len uniform --closed-loop
+  PYTHONPATH=src python -m repro_torch.launch.serve_topics \
+      --restore-train /tmp/deleda_ckpt --restore-node 3 --topics 100 \
+      --vocab 50000 --doc-len 64 --requests 512 --closed-loop
 
 Runs on the GPU; ``--device cpu`` runs the plain torch path instead.
 :func:`main` returns the results and the measured rates as a dict.
@@ -31,7 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-from repro_torch.core import serving
+from repro_torch.core import deleda, serving
 from repro_torch.core import threefry as tf3
 from repro_torch.core.lda import LDAConfig, LDAState
 from repro_torch.core.oem import run_oem
@@ -51,6 +56,8 @@ def _get_stats(config: LDAConfig, args, corpus,
                device: torch.device) -> tuple[LDAState, float]:
     """The served statistic and the G-OEM training seconds (0 if restored)."""
     key = tf3.key(args.seed, device)
+    if args.restore_train:
+        return _restore_train_node(config, args, device), 0.0
     if args.restore:
         zero = torch.zeros((), dtype=torch.int32, device=device)
         like = LDAState(stats=torch.zeros((config.n_topics,
@@ -79,6 +86,37 @@ def _get_stats(config: LDAConfig, args, corpus,
     return state, train_s
 
 
+def _restore_train_node(config: LDAConfig, args,
+                        device: torch.device) -> LDAState:
+    """Node ``args.restore_node``'s statistic of a DELEDA TrainState
+    checkpoint, as a single-node ``LDAState`` on ``device``.
+
+    The checkpoint is restored on the CPU and only the node's row moves.
+    No config digest is checked: serving knows the model's shape, not
+    the training run's knobs.
+    """
+    like = deleda.state_like(deleda.DeledaConfig(lda=config),
+                             args.restore_nodes, "cpu",
+                             vocab_shards=args.restore_vocab_shards)
+    tstate = deleda.restore_state(args.restore_train, like)
+    i = args.restore_node
+    if not 0 <= i < tstate.n_nodes:
+        raise SystemExit(f"--restore-node {i} out of range for the "
+                         f"{tstate.n_nodes}-node checkpoint")
+    if not bool(tstate.member[i]):
+        print(f"note: node {i} is not a member at step {tstate.t} — "
+              f"serving its frozen statistic")
+    state = LDAState(
+        stats=tstate.dense_stats()[i].to(device, copy=True),
+        step=tstate.steps[i].to(device),
+        stats_version=torch.tensor(tstate.stats_version, dtype=torch.int32,
+                                   device=device))
+    print(f"restored train state: node {i}/{tstate.n_nodes} at round "
+          f"{tstate.t} (local steps {int(tstate.steps[i])}, stats_version "
+          f"{tstate.stats_version})")
+    return state
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--topics", type=int, default=5)
@@ -92,6 +130,17 @@ def main(argv=None) -> dict:
                     help="checkpoint dir to save the trained statistic")
     ap.add_argument("--restore", default=None,
                     help="checkpoint dir to restore instead of training")
+    ap.add_argument("--restore-train", default=None, metavar="DIR",
+                    help="restore a DELEDA TrainState checkpoint "
+                         "(run_deleda save_every, either package) and "
+                         "serve one node's statistic")
+    ap.add_argument("--restore-node", type=int, default=0,
+                    help="which node's statistic to serve (--restore-train)")
+    ap.add_argument("--restore-nodes", type=int, default=50,
+                    help="node count the train checkpoint was written with")
+    ap.add_argument("--restore-vocab-shards", type=int, default=1,
+                    help="vocab_shards the train checkpoint was written "
+                         "with (the carried stats layout)")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--rate", type=float, default=200.0,
                     help="Poisson arrival rate (requests/sec)")

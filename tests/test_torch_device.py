@@ -606,3 +606,76 @@ def test_serve_main_draws_the_same_model_on_cuda_and_cpu(cuda_device):
     for path, leaf in got.items():
         assert leaf.device.type == "cuda", path
         assert torch.equal(leaf.cpu(), want[path]), path
+
+
+def _lifecycle_inputs(dev, layout="dense"):
+    """A small DELEDA run's corpus, schedule and config on ``dev``."""
+    from repro_torch.core import deleda, evaluation
+    from repro_torch.core import threefry as tf3
+    from repro_torch.core.graph import watts_strogatz_graph
+    from repro_torch.core.lda import LDAConfig
+    from repro_torch.data import lda_synthetic as synth
+
+    lcfg = LDAConfig(n_topics=3, vocab_size=24, alpha=0.5, doc_len_max=10,
+                     n_gibbs=4, n_gibbs_burnin=2)
+    stream = synth.make_corpus_stream(
+        lcfg, tf3.key(0, dev), synth.CorpusSpec(
+            n_nodes=10, docs_per_node=4, n_test=6, refresh_every=10))
+    sched, degs = deleda.make_run_inputs(
+        watts_strogatz_graph(10, 4, 0.3, seed=0), 20, seed=1,
+        kind="matching")
+    spec = evaluation.EvalSpec(words=stream.base.test_words,
+                               mask=stream.base.test_mask,
+                               key=tf3.key(99, dev), n_particles=2,
+                               probe_nodes=2, layout=layout)
+    cfg = deleda.DeledaConfig(lda=lcfg, batch_size=2, eval_every=10,
+                              corpus_layout=layout, decay=(5.0, 0.8))
+    return cfg, stream, sched, degs, spec
+
+
+@pytest.mark.parametrize("layout", ["dense", "unique"])
+def test_kill_restore_bitwise_on_card(cuda_device, tmp_path, layout):
+    """A streamed run with forgetting, killed at step 10 and resumed on the
+    card, equals the uninterrupted run bit for bit."""
+    import shutil
+
+    from repro_torch.core import deleda
+    from repro_torch.core import threefry as tf3
+
+    cfg, stream, sched, degs, spec = _lifecycle_inputs(cuda_device, layout)
+    args = (cfg, tf3.key(4, cuda_device), None, None, sched, degs, 20)
+    kw = dict(record_every=10, eval_spec=spec, stream=stream)
+    full = deleda.run_deleda(*args, **kw)
+    deleda.run_deleda(*args, save_every=10, checkpoint_dir=str(tmp_path),
+                      **kw)
+    shutil.rmtree(tmp_path / "step_00000020")
+    resumed = deleda.run_deleda(*args, restore_from=str(tmp_path), **kw)
+    assert resumed.stats.device.type == "cuda"
+    for name in ("stats", "steps", "eval_lp"):
+        assert torch.equal(getattr(full, name)[-1:],
+                           getattr(resumed, name)[-1:]), name
+    assert torch.equal(full.consensus[-1], resumed.consensus[-1])
+    assert resumed.state.cursor == 1 and resumed.state.t == 20
+
+
+def test_card_checkpoint_restores_on_cpu(cuda_device, tmp_path):
+    """A TrainState saved from CUDA tensors restores on the CPU with equal
+    arrays; a streamed segment drawn for the card is the CPU's."""
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.core import deleda
+    from repro_torch.core import threefry as tf3
+
+    cfg, stream, sched, degs, _spec = _lifecycle_inputs(cuda_device)
+    cfg = deleda.DeledaConfig(lda=cfg.lda, batch_size=2)
+    tr = deleda.run_deleda(cfg, tf3.key(4, cuda_device), None, None, sched,
+                           degs, 20, record_every=10, stream=stream)
+    deleda.save_state(str(tmp_path), tr.state, config=cfg)
+    got = deleda.restore_state(str(tmp_path),
+                               deleda.state_like(cfg, 10, "cpu"), config=cfg)
+    assert got.stats.device.type == "cpu"
+    want = train_state_to_numpy(tr.state)
+    for name, arr in train_state_to_numpy(got).items():
+        np.testing.assert_array_equal(arr, want[name])
+    _, cpu_stream, *_ = _lifecycle_inputs(torch.device("cpu"))
+    for a, b in zip(stream.segment(1), cpu_stream.segment(1)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
