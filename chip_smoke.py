@@ -47,10 +47,26 @@
    launches of the eval schedule):
    - the paper's experiment, ``launch.deleda_experiment.run_experiment``
      at ``PAPER`` (n=50, K=5, V=100, 400 steps, G-OEM and {async, sync} x
-     {complete, WS}): the Fig. 1a/1b trajectories, the share of records
-     inside the eq. (3) envelope, rounds/s per run and claims C1-C3; its
-     LP* against the LP* of the same seed's corpus on the CPU (rel 1e-4:
-     a corpus is drawn on the CPU on every device);
+     {complete, WS}) for seeds 0-2 (``FIG1_SEEDS``): the Fig. 1a/1b
+     trajectories, the share of records inside the eq. (3) envelope,
+     rounds/s per run, claims C1-C3 per seed and their mean and spread
+     over the seeds; each seed's LP* against the LP* of the same seed's
+     corpus on the CPU (rel 1e-4: a corpus is drawn on the CPU on every
+     device);
+   - the scenario sweep (slice 9), ``launch.scenario_bench.main`` at
+     ``SCENARIO_PAPER`` (n=50, K=5, V=100, 300 rounds, 10 sweeps) for
+     seeds 0-2 (``SCEN_SEEDS``): the six regimes of
+     ``core.scenario.SCENARIO_NAMES`` as async matchings on WS, the
+     reference's gates (rewiring and drop10 within 10% of static's LP,
+     the cold join's tail inside the eq. (3) envelope) and both kill
+     drills bit for bit. Before it, every shape is computed on the host
+     from the compiled scenarios (the updating nodes m of each round, as
+     ``deleda._plan_segment`` plans them) and held: ``lda_gibbs`` at B =
+     10 m, ``gossip_mix`` at m/2 pairs of [50, 5, 100], ``lda_l2r`` at
+     the evaluator's B=50, P=5. Its launches by shape must equal one K1
+     and one K2 per round with a live pair of every run and drill, and 19
+     K3 a seed (LP* and three probe nodes a regime). Prints each regime's
+     mean and spread over the seeds;
    - full width, ``core.deleda.run_deleda`` at K=100, V=50,000, L=64,
      n=50, batch 20: 40 rounds of sync matchings on the complete graph
      and 40 async edge events on WS, held-out LP every 20 rounds (3 probe
@@ -60,11 +76,20 @@
      run's wall. Then 10 sync rounds from a built state, timed, then
      again under ``torch.profiler``: the card's idle share over that one
      window, kernels per round, the entries with the most device time
-     and the host's waits on the card.
+     and the host's waits on the card. One scenario at full width
+     (``SCEN_FULL``): 40 async edge events on a WS graph rewired every
+     10 rounds (per-step degrees), 10% drops, 20% churn, node 49's cold
+     join at round 20 and node 7's leave at round 30, LP every 20
+     rounds, a record every 10: K1 and K2 once per live event at the
+     async run's held shapes, each node's step counter equal to its live
+     events, and every node down or not a member through a record's ten
+     rounds keeping its row bit for bit; rounds/s, peak memory and
+     events by kind.
    - a trajectory check at the golden test's shapes (K=3, V=20, L=8,
      N=8, T=20): the CUDA path against the CPU plain path from the same
      inputs (steps equal, mass rtol 1e-4, probe rtol 3e-3, LP rtol 1e-5),
-     in both corpus layouts;
+     in both corpus layouts, and with one compiled scenario (a rewiring,
+     drops, churn, a join and a leave) in each schedule kind;
    - the lifecycle (slice 8) at full width: 40 sync matching rounds on
      the complete graph with forgetting (decay (5, 0.8)) on a streamed
      corpus refreshed every 20 rounds, LP every 20, saved every 20
@@ -132,12 +157,13 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving and lifecycle numbers with the card, and the script's
-   seconds.
+   LM-serving, lifecycle and scenario numbers with the card, and the
+   script's seconds.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
-device it exits non-zero before printing any result.
+device, or without ``src/repro_torch`` beside it (the script copied
+alone), it exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -222,6 +248,13 @@ ZFULL = dict(FULL, l=256)
 SPARSE_SRC = "src/repro_torch/kernels/lda_sparse/csrc/lda_sparse.cu"
 SPARSE_TPU = "src/repro/kernels/lda_sparse/lda_sparse.py:53"
 GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
+FIG1_SEEDS = (0, 1, 2)                     # the §4 experiment's seeds
+# the scenario slice: launch/scenario_bench's sweep over these seeds, and
+# one scenario at full width (FULL's model and network, async edges) with
+# a rewiring WS graph, drops, churn, a cold join and a leave
+SCEN_SEEDS = (0, 1, 2)
+SCEN_FULL = dict(segments=4, drop=0.1, churn=0.2, join=(49, 20),
+                 leave=(7, 30), record=10)
 # the lifecycle phase: FULL's sync run with forgetting (the reference
 # tests' decay), a stream refreshed every FULL["every"] rounds, and the
 # requests --restore-train serves from node 3
@@ -704,7 +737,7 @@ class _Port:
         sys.path.insert(0, str(ROOT / "src"))
         from repro_torch import checkpoint
         from repro_torch.core import comm, deleda, estep, evaluation, graph
-        from repro_torch.core import serving
+        from repro_torch.core import scenario, serving
         from repro_torch.core import lda
         from repro_torch.core import threefry as tf3
         from repro_torch.data import lda_synthetic
@@ -714,8 +747,8 @@ class _Port:
         from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
         from repro_torch.kernels.lda_l2r import ops as l2r_ops
         from repro_torch.kernels.lda_sparse import ops as sparse_ops
-        from repro_torch.launch import (deleda_experiment, serve_topics,
-                                        sparse_bench)
+        from repro_torch.launch import (deleda_experiment, scenario_bench,
+                                        serve_topics, sparse_bench)
         from repro_torch.configs import get_config
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.flash_attention import ref as flash_ref
@@ -729,6 +762,7 @@ class _Port:
         self.mix_ops, self.mix_ref = mix_ops, mix_ref
         self.sparse_ops, self.sparse_bench = sparse_ops, sparse_bench
         self.serve_topics, self.experiment = serve_topics, deleda_experiment
+        self.scenario, self.scenario_bench = scenario, scenario_bench
         self.ops = {"gossip_mix": mix_ops, "lda_gibbs": gibbs_ops,
                     "lda_l2r": l2r_ops, "lda_sparse": sparse_ops}
         # the LM slice's kernel, counted apart from the LDA paths' four
@@ -883,57 +917,92 @@ def _expected(mode, sched, eval_every):
 
 
 def _drive_paper(rt, dev, rows):
-    """The §4 experiment through its entry point, counters zeroed; its
-    launches by shape go to ``rows`` and are checked against the rules."""
+    """The §4 experiment through its entry point over ``FIG1_SEEDS``,
+    counters zeroed; its launches by shape go to ``rows`` and are checked
+    against the rules. Each seed's LP* against the CPU's; the claims'
+    mean and spread over the seeds."""
     p = rt.experiment.PAPER
     n, graph = p.corpus.n_nodes, rt.graph
     # the same seed's corpus and LP* on the CPU (the plain path): a corpus
     # is drawn on the CPU on every device, so the two LP* agree
     cpu = torch.device("cpu")
-    corpus_cpu = rt.data.make_corpus(p.lda, rt.tf3.key(0, cpu), p.corpus)
-    _, lp_cpu = rt.experiment.make_beta_evaluator(p, corpus_cpu, 0)
+    lp_cpu = {}
+    for seed in FIG1_SEEDS:
+        corpus_cpu = rt.data.make_corpus(p.lda, rt.tf3.key(seed, cpu),
+                                         p.corpus)
+        _, lp_cpu[seed] = rt.experiment.make_beta_evaluator(p, corpus_cpu,
+                                                            seed)
     rt.zero_counts()
-    res = rt.experiment.run_experiment(p, seed=0, device=dev)
+    over = rt.experiment.run_experiment(p, device=dev, seeds=FIG1_SEEDS)
     torch.cuda.synchronize()
-    lp_rel = abs(res["lp_star"] - lp_cpu) / abs(lp_cpu)
-    print(f"paper-scale LP* {res['lp_star']:.6f} on the card, "
-          f"{lp_cpu:.6f} on the CPU from the same seed (rel {lp_rel:.3g}, "
-          f"limit 1e-4; the CPU re-anchor run gave 35.686) | {rt.card}",
-          flush=True)
-    if not lp_rel < 1e-4:
-        raise AssertionError(f"paper-scale LP* differs between the card "
-                             f"and the CPU: rel {lp_rel}")
+    for seed, res in over["per_seed"].items():
+        lp_rel = abs(res["lp_star"] - lp_cpu[seed]) / abs(lp_cpu[seed])
+        print(f"paper-scale LP* of seed {seed}: {res['lp_star']:.6f} on the "
+              f"card, {lp_cpu[seed]:.6f} on the CPU from the same seed (rel "
+              f"{lp_rel:.3g}, limit 1e-4; seed 0 gave 35.686 on the CPU "
+              f"before) | {rt.card}", flush=True)
+        if not lp_rel < 1e-4:
+            raise AssertionError(f"paper-scale LP* of seed {seed} differs "
+                                 f"between the card and the CPU: rel "
+                                 f"{lp_rel}")
     got = _tally(rt, rows, "paper")
     n_rec = p.n_steps // p.record_every
-    want = {"paper_goem": p.n_steps, "paper_eval": 1 + n_rec,
+    seeds = len(FIG1_SEEDS)
+    want = {"paper_goem": seeds * p.n_steps, "paper_eval": seeds * (1 + n_rec),
             "paper_sync": 0, "paper_async": 0, "paper_mix": 0,
             "paper_inloop": 0}
-    graphs = {"complete": graph.complete_graph(n),
-              "watts_strogatz": graph.watts_strogatz_graph(n, p.ws_k, 0.3,
-                                                           seed=0)}
-    for gobj in graphs.values():
-        sched, _degs = rt.deleda.make_run_inputs(gobj, p.n_steps, seed=0)
-        for mode in ("async", "sync"):
-            e = _expected(mode, sched, p.record_every)
-            want[f"paper_{mode}"] += e["lda_gibbs"]
-            want["paper_mix"] += e["gossip_mix"]
-            want["paper_inloop"] += e["lda_l2r"]
+    for seed in FIG1_SEEDS:
+        for gobj in (graph.complete_graph(n),
+                     graph.watts_strogatz_graph(n, p.ws_k, 0.3, seed=seed)):
+            sched, _degs = rt.deleda.make_run_inputs(gobj, p.n_steps,
+                                                     seed=seed)
+            for mode in ("async", "sync"):
+                e = _expected(mode, sched, p.record_every)
+                want[f"paper_{mode}"] += e["lda_gibbs"]
+                want["paper_mix"] += e["gossip_mix"]
+                want["paper_inloop"] += e["lda_l2r"]
     _check_phases("paper", got, want)
-    res["claims"] = rt.experiment.claims(res)
-    rt.experiment.print_report(res)
-    for name, run in res["runs"].items():
-        vals = run["rel_perplexity"] + run["beta_distance"]
-        if not np.all(np.isfinite(vals)):
-            raise AssertionError(f"paper run {name}: a metric is not finite")
+    for seed, res in over["per_seed"].items():
+        print(f"\nFig. 1, seed {seed}:")
+        rt.experiment.print_report(res)
+        for name, run in res["runs"].items():
+            vals = run["rel_perplexity"] + run["beta_distance"]
+            if not np.all(np.isfinite(vals)):
+                raise AssertionError(f"paper run {name} of seed {seed}: a "
+                                     f"metric is not finite")
+    claims = over["claims_over_seeds"]
+    print(f"\nFig. 1 claims over seeds {list(FIG1_SEEDS)}, mean [min, max] "
+          f"| {rt.card}")
+    for name, c in claims["C1"].items():
+        print(f"  C1 {name:>22s}: gap to G-OEM {c['mean']:+.4f} "
+              f"[{c['min']:+.4f}, {c['max']:+.4f}], within "
+              f"{claims['c1_tol']} at {c['holds']} of {c['seeds']} seeds")
+    for key in ("C2_ws_minus_complete", "C3_sync_minus_async"):
+        for name, c in claims[key].items():
+            print(f"  {key} {name}: {c['mean']:+.4f} [{c['min']:+.4f}, "
+                  f"{c['max']:+.4f}]")
     print(f"(paper scale on {rt.card})", flush=True)
+    res = over["per_seed"][FIG1_SEEDS[0]]
     summary = {k: res[k] for k in ("lp_star", "lambda2", "iterations",
                                    "claims")}
-    summary["lp_star_cpu"] = lp_cpu
+    summary["lp_star_cpu"] = lp_cpu[FIG1_SEEDS[0]]
     summary["runs"] = {
         name: {k: run[k] for k in ("rel_perplexity", "beta_distance",
                                    "rounds_per_s", "wall_sec",
                                    "within_envelope_frac") if k in run}
         for name, run in res["runs"].items()}
+    summary["seeds"] = {
+        seed: {"lp_star": r["lp_star"], "lp_star_cpu": lp_cpu[seed],
+               "claims": r["claims"],
+               "final_rel_perplexity": {
+                   name: run["rel_perplexity"][-1]
+                   for name, run in r["runs"].items()},
+               "within_envelope_frac": {
+                   name: run["within_envelope_frac"]
+                   for name, run in r["runs"].items()
+                   if "within_envelope_frac" in run}}
+        for seed, r in over["per_seed"].items()}
+    summary["claims_over_seeds"] = claims
     summary["launches"] = rt.counts()
     return summary
 
@@ -1491,9 +1560,26 @@ def _profile_rounds(rt, dev, rounds=10):
     return out
 
 
+def _trajectory_scenario(rt, kind):
+    """At the golden shapes, one compiled scenario with all of the layer:
+    a WS graph rewired once (per-step degrees), 20% drops, 20% churn, the
+    last node's cold join at T/2 and node 2's leave at 3T/4."""
+    gsz = GOLDEN
+    seq = rt.scenario.GraphSequence.rewiring(
+        lambda s: rt.graph.watts_strogatz_graph(gsz["n"], 4, 0.3, seed=s),
+        2, gsz["t"] // 2)
+    return rt.scenario.Scenario(
+        topology=seq, kind=kind, drop_prob=0.2, churn=0.2,
+        churn_mean_down=4.0, joins=((gsz["n"] - 1, gsz["t"] // 2),),
+        leaves=((2, 3 * gsz["t"] // 4),), name="trajectory").compile(
+        np.random.default_rng(5))
+
+
 def _trajectory_check(rt, dev):
     """The CUDA path against the CPU plain path from the same inputs, at
-    the golden test's shapes (tests/test_golden.py's tolerances)."""
+    the golden test's shapes (tests/test_golden.py's tolerances); two of
+    the runs take a compiled scenario (``_trajectory_scenario``), one in
+    each schedule kind."""
     gsz = GOLDEN
     cfg_lda = rt.lda.LDAConfig(n_topics=gsz["k"], vocab_size=gsz["v"],
                                alpha=0.5, doc_len_max=gsz["l"], n_gibbs=4,
@@ -1504,14 +1590,23 @@ def _trajectory_check(rt, dev):
                                                     docs_per_node=4,
                                                     n_test=4))
     gobj = rt.graph.watts_strogatz_graph(gsz["n"], 4, 0.3, seed=0)
+    scen = {kind: _trajectory_scenario(rt, kind) for kind in ("edge",
+                                                             "matching")}
     out = []
-    for kind, mode, every, layout in (
-            ("edge", "async", 0, "dense"), ("matching", "async", 0, "dense"),
-            ("matching", "sync", 10, "dense"),
-            ("edge", "async", 0, "unique"),
-            ("matching", "async", 10, "unique")):
-        sched, degs = rt.deleda.make_run_inputs(gobj, gsz["t"], seed=0,
-                                                kind=kind)
+    for kind, mode, every, layout, scenario in (
+            ("edge", "async", 0, "dense", False),
+            ("matching", "async", 0, "dense", False),
+            ("matching", "sync", 10, "dense", False),
+            ("edge", "async", 0, "unique", False),
+            ("matching", "async", 10, "unique", False),
+            ("edge", "async", 10, "dense", True),
+            ("matching", "async", 10, "dense", True)):
+        alive = member = None
+        if scenario:
+            sched, degs, alive, member = scen[kind].run_inputs()
+        else:
+            sched, degs = rt.deleda.make_run_inputs(gobj, gsz["t"], seed=0,
+                                                    kind=kind)
         cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode=mode, batch_size=2,
                                      eval_every=every, corpus_layout=layout)
         init = rt.deleda.init_state(cfg, rt.tf3.key(1), gsz["n"])
@@ -1529,10 +1624,11 @@ def _trajectory_check(rt, dev):
             traces.append(rt.deleda.run_deleda(
                 cfg, init.key.to(d), corpus.words.to(d), corpus.mask.to(d),
                 sched, degs, gsz["t"], record_every=10, eval_spec=spec,
-                init=state))
+                init=state, alive=alive, member=member))
         a, b = traces
         sa, sb = a.stats.double(), b.stats.double().cpu()
-        where = f"trajectory {kind} {mode} {layout}"
+        where = (f"trajectory {kind} {mode} {layout}"
+                 + (" scenario" if scenario else ""))
         if a.steps.tolist() != b.steps.cpu().tolist():
             raise AssertionError(f"{where}: steps differ")
         mass = abs(float(sb.sum()) / float(sa.sum()) - 1.0)
@@ -1541,7 +1637,7 @@ def _trajectory_check(rt, dev):
             raise AssertionError(f"{where}: mass rel diff {mass}, probe "
                                  f"{pa} vs {pb}")
         row = {"kind": kind, "mode": mode, "layout": layout,
-               "mass_rel_diff": mass,
+               "scenario": scenario, "mass_rel_diff": mass,
                "probe_max_abs_diff": float((pb - pa).abs().max())}
         if every:
             la, lb = a.eval_lp.double(), b.eval_lp.double().cpu()
@@ -1550,6 +1646,209 @@ def _trajectory_check(rt, dev):
             row["eval_lp_max_rel_diff"] = float(((lb - la) / la).abs().max())
         out.append(row)
         print(f"{where} check: {row}", flush=True)
+    return out
+
+
+def _scenario_plans(rt, scale):
+    """Per (seed, regime) of the sweep: the updating nodes m of each round,
+    as ``run_deleda`` plans them (``deleda._plan_segment``) from the
+    compiled scenario's schedule and masks. Async matchings: K2 runs at
+    B = batch x m and K1 at m/2 pairs in every round with m > 0."""
+    cfg = rt.deleda.DeledaConfig(lda=scale.lda, mode="async",
+                                 batch_size=scale.batch_size)
+    n = scale.corpus.n_nodes
+    plans = {}
+    for seed in SCEN_SEEDS:
+        for name in rt.scenario.SCENARIO_NAMES:
+            sc = rt.scenario.paper_scenario(name, n=n, n_steps=scale.n_steps,
+                                            seed=seed, ws_k=scale.ws_k)
+            sched, _degs, alive, member = sc.compile(
+                np.random.default_rng(seed + 17)).run_inputs()
+            live = alive if member is None else alive & member
+            _events, counts, _rows = rt.deleda._plan_segment(
+                cfg, sched, live, "cpu")
+            plans[seed, name] = np.asarray(counts)
+    return plans
+
+
+def _scenario_cases(rt, scale, plans):
+    """Every shape the sweep launches: K2 and K1 at each m of the plans,
+    K3 at the evaluator's held-out batch."""
+    lda_cfg = scale.lda
+    kv = dict(k=lda_cfg.n_topics, v=lda_cfg.vocab_size)
+    length = ("poisson", 2, lda_cfg.doc_len_max)
+    ms = sorted(set(np.concatenate(list(plans.values())).tolist()) - {0})
+    cases = []
+    for m in ms:
+        cases.append(("lda_gibbs", f"scen_gibbs_{m}", dict(
+            kv, b=scale.batch_size * m, l=lda_cfg.doc_len_max,
+            s=lda_cfg.n_gibbs, burnin=lda_cfg.n_gibbs_burnin,
+            lengths=length)))
+        cases.append(("gossip_mix", f"scen_mix_{m // 2}", dict(
+            n=scale.corpus.n_nodes, k=kv["k"], v=kv["v"], pairs=m // 2)))
+    cases.append(("lda_l2r", "scen_eval", dict(
+        kv, b=scale.corpus.n_test, l=lda_cfg.doc_len_max,
+        p=scale.n_particles, lengths=length)))
+    return cases
+
+
+def _drive_scenarios(rt, dev):
+    """The scenario sweep (slice 9) at paper scale through
+    ``launch.scenario_bench`` (seeds ``SCEN_SEEDS``, all six regimes,
+    async matchings on WS, the reference's gates, both resume drills).
+    Every shape it launches is held first; with the counters zeroed, its
+    launches by shape must equal what the compiled masks imply. Returns
+    (held rows, summary)."""
+    scale = rt.experiment.SCENARIO_PAPER
+    plans = _scenario_plans(rt, scale)
+    rows = _hold_deleda(rt, dev, _scenario_cases(rt, scale, plans),
+                        seed=100)
+    names = rt.scenario.SCENARIO_NAMES
+    argv = ["--scale", "paper", "--seeds", *map(str, SCEN_SEEDS),
+            "--resume-smoke", "--device", dev.type]
+    rt.zero_counts()
+    wall, res = _seconds(lambda: rt.scenario_bench.main(argv))
+    got = _tally(rt, rows, "scenario sweep")
+    half = scale.n_steps // 2
+    counts = [plans[key] for key in plans]
+    counts += [plans[SCEN_SEEDS[0], name]
+               for name in rt.scenario_bench.RESUME_REGIMES]     # full runs
+    counts += [plans[SCEN_SEEDS[0], name][half:]
+               for name in rt.scenario_bench.RESUME_REGIMES]     # resumed
+    want = {"scen_eval": len(SCEN_SEEDS) * (1 + scale.probe_nodes
+                                            * len(names))}
+    for c in counts:
+        for m, k in zip(*np.unique(c[c > 0], return_counts=True)):
+            want[f"scen_gibbs_{m}"] = want.get(f"scen_gibbs_{m}", 0) + int(k)
+            want[f"scen_mix_{m // 2}"] = (want.get(f"scen_mix_{m // 2}", 0)
+                                          + int(k))
+    _check_phases("scenario sweep", got, want)
+    idle = {name: int(sum((plans[s, name] == 0).sum() for s in SCEN_SEEDS))
+            for name in names}
+    print(f"scenario sweep: {len(SCEN_SEEDS) * len(names)} runs of "
+          f"{scale.n_steps} rounds and the resume drills in {wall:.1f} s; "
+          f"rounds without a live pair (no launch) by regime {idle}; "
+          f"{len(rows)} held shapes | {rt.card}", flush=True)
+    per_seed = res["per_seed"]
+    over = res["regimes_over_seeds"]
+    for name in names:
+        runs = [per_seed[s]["runs"][name] for s in SCEN_SEEDS]
+        vals = [r["rel_perplexity"] for r in runs] + [
+            r["beta_distance"] for r in runs]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"scenario {name}: a metric is not finite")
+        print(f"scenario {name:>9s} over seeds {list(SCEN_SEEDS)}, mean "
+              f"[min, max]: " + "; ".join(
+                  f"{k} {m['mean']:+.5f} [{m['min']:+.5f}, {m['max']:+.5f}]"
+                  for k, m in over[name].items())
+              + f"; {np.mean([r['rounds_per_s'] for r in runs]):.2f} "
+              f"rounds/s | {rt.card}", flush=True)
+    summary = {
+        "seeds": list(SCEN_SEEDS), "wall_s": wall,
+        "lp_star": {s: per_seed[s]["lp_star"] for s in SCEN_SEEDS},
+        "regimes_over_seeds": over,
+        "rounds_per_s": {name: [per_seed[s]["runs"][name]["rounds_per_s"]
+                                for s in SCEN_SEEDS] for name in names},
+        "events": {name: [per_seed[s]["runs"][name]["events"]
+                          for s in SCEN_SEEDS] for name in names},
+        "coldjoin_tail_within_envelope": [
+            per_seed[s]["runs"]["coldjoin"]["tail_within_envelope"]
+            for s in SCEN_SEEDS],
+        "gates": res["gates"], "resume_bitwise": res["resume_bitwise"],
+        "kernel_launches": res["kernel_launches"], "card": rt.card}
+    return rows, summary
+
+
+def _drive_full_scenario(rt, dev, full_rows, cfg_lda, corpus):
+    """One scenario at full width (``SCEN_FULL``): async edge events over a
+    WS graph rewired every 10 rounds (per-step degrees drive Remark 1),
+    10% drops, 20% churn, a cold join and a leave; LP every 20 rounds.
+    Every launch falls on a shape ``_drive_full`` holds. Checks: K1 and K2
+    once per live event; each node's step counter equals its live events;
+    a node down or not a member through all the rounds between two
+    records keeps its row bit for bit (the first record against the
+    initial state)."""
+    f, sf = FULL, SCEN_FULL
+    n, rounds, rec = f["n"], f["rounds"], sf["record"]
+    seq = rt.scenario.GraphSequence.rewiring(
+        lambda s: rt.graph.watts_strogatz_graph(n, 4, 0.3, seed=s),
+        sf["segments"], rounds // sf["segments"])
+    compiled = rt.scenario.Scenario(
+        topology=seq, kind="edge", drop_prob=sf["drop"], churn=sf["churn"],
+        joins=(sf["join"],), leaves=(sf["leave"],),
+        name="full_width").compile(np.random.default_rng(0))
+    sched, degs, alive, member = compiled.run_inputs()
+    live = alive & member
+    src, dst = sched.data[:, 0], sched.data[:, 1]
+    t_idx = np.arange(rounds)
+    ev_live = (src != dst) & live[t_idx, src] & live[t_idx, dst]
+    want_steps = np.zeros(n, np.int64)
+    np.add.at(want_steps, src[ev_live], 1)
+    np.add.at(want_steps, dst[ev_live], 1)
+    cfg = rt.deleda.DeledaConfig(lda=cfg_lda, mode="async",
+                                 batch_size=f["batch"],
+                                 eval_every=f["every"])
+    spec = rt.evaluation.EvalSpec(words=corpus.test_words,
+                                  mask=corpus.test_mask,
+                                  key=rt.tf3.key(1, dev), n_particles=10,
+                                  probe_nodes=f["probes"])
+    state = rt.deleda.init_state(cfg, rt.tf3.key(3, dev), n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    wall, trace = _seconds(lambda: rt.deleda.run_deleda(
+        cfg, state.key, corpus.words, corpus.mask, sched, degs, rounds,
+        record_every=rec, eval_spec=spec, init=state, alive=alive,
+        member=member))
+    peak = torch.cuda.max_memory_allocated()
+    where = f"full-width scenario (async edges, L={cfg_lda.doc_len_max})"
+    got = _tally(rt, full_rows, where)
+    n_live = int(ev_live.sum())
+    _check_phases(where, got, {"full_async_mix": n_live,
+                               "full_async": n_live,
+                               "full_inloop": rounds // f["every"]})
+    if trace.steps.cpu().tolist() != want_steps.tolist():
+        raise AssertionError(f"{where}: step counters "
+                             f"{trace.steps.tolist()}, live events "
+                             f"{want_steps.tolist()}")
+    frozen = []
+    for r in range(rounds // rec):
+        out = np.nonzero(~live[r * rec:(r + 1) * rec].any(0))[0]
+        for i in out.tolist():
+            before = state.stats[i] if r == 0 else trace.history[r - 1][i]
+            if not torch.equal(trace.history[r][i], before):
+                raise AssertionError(f"{where}: node {i} was out through "
+                                     f"record {r}'s rounds but its row "
+                                     f"moved")
+            frozen.append((r, i))
+    join_i, join_t = sf["join"]
+    leave_i, leave_t = sf["leave"]
+    must = {(r, join_i) for r in range(join_t // rec)} | {
+        (r, leave_i) for r in range(-(-leave_t // rec), rounds // rec)}
+    if not must <= set(frozen):
+        raise AssertionError(f"{where}: the joiner's and leaver's out "
+                             f"windows {sorted(must)} were not checked")
+    lp = trace.eval_lp
+    if (lp.shape != (rounds // f["every"], f["probes"])
+            or not bool(torch.isfinite(lp).all())
+            or not bool(torch.isfinite(trace.stats).all())):
+        raise AssertionError(f"{where}: non-finite or misshapen output {lp}")
+    events = {"drawn": compiled.n_events, "dropped": compiled.n_dropped,
+              "churned": compiled.n_churned,
+              "excluded": compiled.n_excluded,
+              "sponsored": compiled.n_sponsored, "live": n_live}
+    out = {"rounds": rounds, "segments": sched.n_segments,
+           "wall_s": wall, "rounds_per_s": rounds / wall,
+           "peak_mem_gb": peak / 1e9, "events": events,
+           "frozen_rows_checked": len(frozen),
+           "steps": trace.steps.tolist(), "eval_lp": lp.tolist(),
+           "consensus": trace.consensus.tolist(), "card": rt.card}
+    print(f"{where}: {rounds} rounds in {wall:.3f} s = "
+          f"{out['rounds_per_s']:.2f} rounds/s, peak {peak / 1e9:.2f} GB, "
+          f"events {events}, {len(frozen)} out (node, record) rows equal "
+          f"to the record before, step counters = live events | {rt.card}",
+          flush=True)
+    del trace, state
     return out
 
 
@@ -2063,6 +2362,10 @@ def _ptxas_lines(log):
 
 
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'};"
+              f" run it from a checkout of the repository", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -2134,8 +2437,16 @@ def main() -> int:
     paper = _drive_paper(rt, dev, [r for r in d_rows
                                    if r["phase"].startswith("paper")])
     torch.cuda.empty_cache()
+    # phase 5a: the scenario layer (slice 9): the sweep at paper scale
+    s_rows, scen = _drive_scenarios(rt, dev)
+    torch.cuda.empty_cache()
     full_rows = [r for r in d_rows if r["phase"].startswith("full")]
-    full = _drive_full(rt, dev, full_rows, *_full_width_inputs(rt, dev))
+    full_inputs = _full_width_inputs(rt, dev)
+    full = _drive_full(rt, dev, full_rows, *full_inputs)
+    torch.cuda.empty_cache()
+    scen["full_width"] = _drive_full_scenario(rt, dev, full_rows,
+                                              *full_inputs)
+    del full_inputs
     torch.cuda.empty_cache()
     profile = _profile_rounds(rt, dev)
     torch.cuda.empty_cache()
@@ -2153,7 +2464,7 @@ def main() -> int:
     # phase 7: the LM slice, gemma2-2b served through K5
     lm_rows, lm = _drive_lm(rt, dev)
     torch.cuda.empty_cache()
-    all_rows = rows + d_rows + z_rows + b_rows + lm_rows
+    all_rows = rows + d_rows + s_rows + z_rows + b_rows + lm_rows
     for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
@@ -2186,6 +2497,7 @@ def main() -> int:
                                         "card": card}}))
     print(json.dumps({"lm_serving": lm}))
     print(json.dumps({"lifecycle": life}))
+    print(json.dumps({"scenarios": scen}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ The torch counterpart of the simulation half of ``repro.core.comm``.
 * :class:`GossipSchedule` — a pre-drawn sequence of gossip events,
   either single activated edges (the paper's asynchronous Algorithm 1,
   ``[T, 2]``) or maximal matchings (synchronous multi-edge rounds,
-  ``[T, n]`` partner vectors). Drawn host-side with numpy, so a schedule
-  equals the reference's for the same generator state.
+  ``[T, n]`` partner vectors), with an optional ``segments`` axis for a
+  time-varying topology (:mod:`.scenario`). Drawn host-side with numpy,
+  so a schedule equals the reference's for the same generator state.
 * :class:`SimComm` — the node axis is a real array axis on one device.
   It stands for both of the reference's simulation backends
   (``DenseSimComm``, the jnp oracle, and ``PallasSimComm``, the
@@ -44,11 +45,16 @@ class GossipSchedule:
                             is the dropped-event sentinel).
     ``kind == "matching"``: data is [T, n] int32 partner vectors
                             (involutions: p[p[i]] == i, self-partner = idle).
+
+    ``segments`` ([T] int32 or None) records which segment of a
+    :class:`~repro_torch.core.scenario.GraphSequence` each round was drawn
+    from; metadata only, the loop reads ``data`` alone.
     """
 
     kind: str
     data: np.ndarray
     n_nodes: int
+    segments: np.ndarray | None = None
 
     def __post_init__(self):
         d = np.asarray(self.data, np.int32)
@@ -68,10 +74,20 @@ class GossipSchedule:
         if len(d) and (d.min() < 0 or d.max() >= self.n_nodes):
             raise ValueError("schedule references node out of range")
         object.__setattr__(self, "data", d)
+        if self.segments is not None:
+            seg = np.asarray(self.segments, np.int32)
+            if seg.shape != (len(d),):
+                raise ValueError(f"segments must be [T={len(d)}], "
+                                 f"got {seg.shape}")
+            object.__setattr__(self, "segments", seg)
 
     @property
     def n_rounds(self) -> int:
         return len(self.data)
+
+    @property
+    def n_segments(self) -> int:
+        return 1 if self.segments is None else int(self.segments.max()) + 1
 
     @staticmethod
     def draw_edges(graph: Graph, n_rounds: int,
@@ -88,6 +104,36 @@ class GossipSchedule:
         return GossipSchedule(
             MATCHING, gossip.draw_matching_schedule(graph, n_rounds, rng),
             graph.n_nodes)
+
+    @staticmethod
+    def hypercube(n: int) -> "GossipSchedule":
+        """log2(n) XOR-partner rounds: exact consensus when run in full."""
+        return GossipSchedule(MATCHING, gossip.hypercube_partners(n), n)
+
+    @staticmethod
+    def ring(n: int, n_rounds: int = 2) -> "GossipSchedule":
+        """Alternating even/odd ring matchings, tiled to n_rounds."""
+        base = gossip.ring_matchings(n)
+        return GossipSchedule(MATCHING, base[np.arange(n_rounds) % len(base)],
+                              n)
+
+    def as_matchings(self) -> "GossipSchedule":
+        """An edge schedule as one-pair-per-round matchings (the same
+        averaging matrix W_e each round); a matching schedule as it is."""
+        if self.kind == MATCHING:
+            return self
+        t = self.n_rounds
+        p = np.broadcast_to(np.arange(self.n_nodes, dtype=np.int32),
+                            (t, self.n_nodes)).copy()
+        rows = np.arange(t)
+        p[rows, self.data[:, 0]] = self.data[:, 1]
+        p[rows, self.data[:, 1]] = self.data[:, 0]
+        return GossipSchedule(MATCHING, p, self.n_nodes,
+                              segments=self.segments)
+
+    def partners(self) -> np.ndarray:
+        """[T, n] partner matrix (an edge schedule converted)."""
+        return self.as_matchings().data
 
 
 def _n_matched(partners) -> int:

@@ -21,8 +21,10 @@ Per iteration:
      ``lda_sparse`` launch).
 
 The asynchronous variant keeps per-node step counters and, for edge
-schedules, the degree correction of Remark 1: node i's step is weighted
-by mean_degree / deg(i).
+schedules, the degree correction of Remark 1 (``degree_correction``):
+node i's step t is weighted by the mean degree over deg_t(i), with
+degrees ``[n]`` for a static graph or ``[T, n]`` per step for a
+time-varying one (:mod:`.scenario`).
 
 The reference runs the trajectory as one compiled ``lax.scan``; here it
 is a Python loop that replays the reference's random streams through
@@ -48,9 +50,11 @@ blend; ``alive``/``member`` ``[T, n]`` host masks freeze nodes that are
 down or not members (they neither mix nor update), folded into the
 schedule on the host once per segment.
 
-Not ported yet (later slices): the vocab-sharded carry (a restored
-``[n, K, S, V/S]`` statistic is served, not trained), per-step degrees
-and the scenario layer that draws the masks.
+The scenario layer (:mod:`.scenario`) compiles rewiring graphs, drops,
+churn and joins into the schedule, ``[T, n]`` degrees and these masks.
+
+Not ported yet (a later slice): the vocab-sharded carry (a restored
+``[n, K, S, V/S]`` statistic is served, not trained).
 """
 
 from __future__ import annotations
@@ -91,6 +95,8 @@ class DeledaConfig:
     rho_kind: str = "power"          # step-size schedule (oem.make_rho_schedule)
     rho_kappa: float = 0.6
     rho_t0: float = 10.0
+    degree_correction: bool = True   # Remark 1 reweighting (async edge
+                                     # schedules only); False = weight 1
     eval_every: int = 0              # in-loop held-out LP every this many
                                      # steps (0 = off; needs an EvalSpec and
                                      # a multiple of record_every)
@@ -439,18 +445,26 @@ def train_steps(config: DeledaConfig, state: TrainState,
 
 def _degree_weights(config: DeledaConfig, degrees, n_steps: int, n: int,
                     kind: str, device) -> torch.Tensor:
-    """``[T, n]`` Remark-1 weights: mean degree / deg(i) for async edge
-    schedules, 1 otherwise (under matching rounds wake rates are near
-    uniform in the degree, so the correction would skew the objective)."""
+    """``[T, n]`` Remark-1 weights: for async edge schedules with
+    ``degree_correction``, step t's mean degree over max(deg[t, i], 1);
+    1 otherwise (under matching rounds wake rates are near uniform in the
+    degree, so the correction would skew the objective). ``degrees`` is
+    ``[n]`` (a static graph) or ``[n_steps, n]`` (per step)."""
     deg = torch.as_tensor(np.asarray(degrees), dtype=torch.float32)
-    if deg.shape != (n,):
-        raise ValueError(f"degrees must be [n={n}], got {tuple(deg.shape)}")
-    if config.mode == "async" and kind == comm_mod.EDGE:
-        # the mean as XLA computes jnp.mean: the sum times float32(1/n)
-        mean = deg.sum() * torch.tensor(1.0 / n, dtype=torch.float32)
+    if deg.shape == (n,):
+        deg = deg[None, :]                                  # one row for all
+    elif deg.shape != (n_steps, n):
+        raise ValueError(f"degrees must be [n={n}] or [{n_steps}, {n}], "
+                         f"got shape {tuple(deg.shape)}")
+    if config.degree_correction and config.mode == "async" and kind == (
+            comm_mod.EDGE):
+        # each row's mean as XLA computes jnp.mean: the sum times
+        # float32(1/n); a [T, n] that repeats the [n] row gives its bits
+        mean = deg.sum(dim=1, keepdim=True) * torch.tensor(
+            1.0 / n, dtype=torch.float32)
         corr = mean / torch.clamp(deg, min=1.0)
     else:
-        corr = torch.ones((n,), dtype=torch.float32)
+        corr = torch.ones((1, n), dtype=torch.float32)
     return corr.to(device).expand(n_steps, n)
 
 
@@ -488,8 +502,10 @@ def run_deleda(config: DeledaConfig, key: torch.Tensor,
 
     words/mask ``[n, D, L]`` private documents per node; schedule a
     :class:`~repro_torch.core.comm.GossipSchedule` of ``n_steps`` edge
-    events or matching rounds (:func:`make_run_inputs`); degrees ``[n]``
-    node degrees (the async degree correction). ``config.eval_every = E``
+    events or matching rounds (:func:`make_run_inputs`, or a compiled
+    scenario's ``run_inputs``); degrees ``[n]`` node degrees or
+    ``[n_steps, n]`` per-step degrees of a time-varying graph (Remark 1's
+    correction, ``config.degree_correction``). ``config.eval_every = E``
     records the held-out LP of the first ``eval_spec.probe_nodes`` nodes
     every E steps into ``trace.eval_lp`` ``[n_steps/E, probe_nodes]``.
     ``init`` starts from a given state instead of ``init_state(config,
@@ -587,7 +603,10 @@ def run_deleda(config: DeledaConfig, key: torch.Tensor,
         rec = slice(t_start // record_every, (t_start + seg) // record_every)
         state, part = train_steps(
             config, state, cur_words, cur_mask,
-            comm_mod.GossipSchedule(schedule.kind, schedule.data[sl], n),
+            comm_mod.GossipSchedule(
+                schedule.kind, schedule.data[sl], n,
+                segments=(None if schedule.segments is None
+                          else schedule.segments[sl])),
             corr[sl], record_every=record_every, eval_spec=eval_spec,
             live=None if live is None else live[sl],
             member_rec=None if member_rec is None else member_rec[rec])

@@ -679,3 +679,94 @@ def test_card_checkpoint_restores_on_cpu(cuda_device, tmp_path):
     _, cpu_stream, *_ = _lifecycle_inputs(torch.device("cpu"))
     for a, b in zip(stream.segment(1), cpu_stream.segment(1)):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def _scenario_masks_and_counts(kind, mode, seed=3):
+    """A compiled churn-and-drop scenario on 13 nodes, its live mask and
+    the updating nodes of each round as run_deleda plans them."""
+    from repro_torch.core import deleda, lda, scenario
+    from repro_torch.core.graph import watts_strogatz_graph
+
+    seq = scenario.GraphSequence.rewiring(
+        lambda s: watts_strogatz_graph(13, 4, 0.3, seed=s), 2, 10)
+    compiled = scenario.Scenario(
+        topology=seq, kind=kind, drop_prob=0.2, churn=0.3,
+        churn_mean_down=3.0, joins=((12, 10),), leaves=((2, 15),)).compile(
+        np.random.default_rng(seed))
+    cfg = deleda.DeledaConfig(lda=lda.LDAConfig(n_topics=5, vocab_size=50,
+                                                doc_len_max=16),
+                              mode=mode, batch_size=3)
+    live = compiled.alive & compiled.member
+    _ev, counts, _rows = deleda._plan_segment(cfg, compiled.schedule, live,
+                                              "cpu")
+    return compiled, live, [13 if c < 0 else c for c in counts]
+
+
+def test_gibbs_at_scenario_batch_sizes_on_card(cuda_device):
+    """K2 at the fused batch sizes a compiled scenario gives it (sync
+    updates every live node, so B = 3 x m is odd where m is): the
+    smallest B and an odd one, against the plain version."""
+    from repro_torch.core import estep
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+
+    _c, _live, counts = _scenario_masks_and_counts("matching", "sync")
+    ms = sorted(set(counts) - {0})
+    odd = [m for m in ms if (3 * m) % 2]
+    assert odd, counts
+    rng = np.random.default_rng(1)
+    for b in sorted({3 * ms[0], 3 * odd[0]}):
+        bw = torch.from_numpy(rng.random((b, 16, 5), dtype=np.float32)
+                              + np.float32(1e-3)).to(cuda_device)
+        lengths = rng.integers(1, 17, size=b)
+        mask = torch.from_numpy((np.arange(16)[None, :] < lengths[:, None])
+                                .astype(np.float32)).to(cuda_device)
+        u = torch.from_numpy(rng.random((10, b, 16),
+                                        dtype=np.float32)).to(cuda_device)
+        z0 = torch.from_numpy(rng.integers(0, 5, (b, 16))).to(cuda_device)
+        before = gibbs_ops.launches
+        got = gibbs_ops.gibbs_sweeps(bw, mask, u, z0, alpha=0.5,
+                                     n_sweeps=10, burnin=5)
+        assert gibbs_ops.launches == before + 1
+        want = estep.gibbs_sweeps_dense(bw, mask, u, z0, alpha=0.5,
+                                        n_sweeps=10, burnin=5)
+        assert torch.equal(got[1], want[1]), b
+        for g, w in (got[0], want[0]), (got[2], want[2]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["edge", "matching"])
+def test_scenario_frozen_rows_on_card(cuda_device, kind):
+    """The full-width scenario phase's properties at a small width, every
+    round recorded: a node down or not a member in a round keeps its row
+    bit for bit; each node's step counter is its live updates; K1 and K2
+    launch once per round with a live pair."""
+    from repro_torch.core import deleda, lda
+    from repro_torch.core import threefry as tf3
+    from repro_torch.data.lda_synthetic import CorpusSpec, make_corpus
+    from repro_torch.kernels.gossip_mix import ops as mix_ops
+    from repro_torch.kernels.lda_gibbs import ops as gibbs_ops
+
+    compiled, live, counts = _scenario_masks_and_counts(kind, "async")
+    lcfg = lda.LDAConfig(n_topics=5, vocab_size=50, doc_len_max=16,
+                         n_gibbs=4, n_gibbs_burnin=2)
+    corpus = make_corpus(lcfg, tf3.key(0, cuda_device),
+                         CorpusSpec(n_nodes=13, docs_per_node=4, n_test=4))
+    cfg = deleda.DeledaConfig(lda=lcfg, mode="async", batch_size=3)
+    sched, degs, alive, member = compiled.run_inputs()
+    state = deleda.init_state(cfg, tf3.key(2, cuda_device), 13)
+    m0, g0 = mix_ops.launches, gibbs_ops.launches
+    tr = deleda.run_deleda(cfg, state.key, corpus.words, corpus.mask, sched,
+                           degs, 20, record_every=1, init=state,
+                           alive=alive, member=member)
+    n_live = sum(c > 0 for c in counts)
+    assert mix_ops.launches - m0 == n_live
+    assert gibbs_ops.launches - g0 == n_live
+    prev = state.stats
+    for t in range(20):
+        for i in np.nonzero(~live[t])[0]:
+            assert torch.equal(tr.history[t][i], prev[i]), (t, i)
+        prev = tr.history[t]
+    data = sched.data if kind == "matching" else sched.partners()
+    ids = np.arange(13)
+    ok = live & np.take_along_axis(live, data, 1) & (data != ids)
+    assert tr.steps.cpu().tolist() == ok.sum(0).tolist()
