@@ -47,7 +47,7 @@
    launches of the eval schedule):
    - the paper's experiment, ``launch.deleda_experiment.run_experiment``
      at ``PAPER`` (n=50, K=5, V=100, 400 steps, G-OEM and {async, sync} x
-     {complete, WS}) for seeds 0-2 (``FIG1_SEEDS``): the Fig. 1a/1b
+     {complete, WS}) for seed 0 (``FIG1_SEEDS``): the Fig. 1a/1b
      trajectories, the share of records inside the eq. (3) envelope,
      rounds/s per run, claims C1-C3 per seed and their mean and spread
      over the seeds; each seed's LP* against the LP* of the same seed's
@@ -55,7 +55,7 @@
      device);
    - the scenario sweep (slice 9), ``launch.scenario_bench.main`` at
      ``SCENARIO_PAPER`` (n=50, K=5, V=100, 300 rounds, 10 sweeps) for
-     seeds 0-2 (``SCEN_SEEDS``): the six regimes of
+     seed 0 (``SCEN_SEEDS``): the six regimes of
      ``core.scenario.SCENARIO_NAMES`` as async matchings on WS, the
      reference's gates (rewiring and drop10 within 10% of static's LP,
      the cold join's tail inside the eq. (3) envelope) and both kill
@@ -120,6 +120,29 @@
    against its calls. The trajectory check of step 4 also runs the unique
    layout (edge events, and matchings with the count-weighted in-loop
    LP).
+5a. The Scale layer (slice 10). ``run_deleda`` at the full width (sync
+   matchings on the complete graph, 40 rounds, LP every 20) with
+   ``vocab_shards=4`` from the state of the same run at ``vocab_shards=1``:
+   equal to it bit for bit (stats, LP, consensus), its launches at the
+   full-width held shapes, rounds/s and peak memory; then saved every 20
+   rounds, killed (step 40 deleted, an uncommitted step-40 directory
+   left) and resumed bit for bit. Then ``launch.gossip_sim.run_mesh_deleda``
+   in ranks spawned by ``gossip_sim.launch`` (the kernels built by this
+   script first; each rank runs 2 warm-up rounds of its mesh, then the
+   counted run): at the full width over NCCL with one rank per card (the
+   most ranks of ``torch.cuda.device_count()`` that divide n; on one card
+   one rank, so no pass crosses ranks), 40 rounds, LP every 20; and over
+   gloo, 4 ranks on the one card as a 2 x 2 node x vocab grid, 10 rounds,
+   against a flat (2, 1) mesh of 2 ranks (stats within 1e-5, consensus
+   rtol 1e-4, the reference's bounds), with each round's exchange, whole
+   gossip step and update step timed (card drained around each); the
+   grid's trajectory on the card against the CPU at the test shapes (K=3,
+   V=24, n=8, 12 rounds, LP every 6). Every shape the ranks launch is
+   computed on the host from the matchings (``_route_matching``: K1 at
+   each node-device's count of intra-rank pairs) and held first; the
+   ranks' launches by shape, summed, must equal it. Prints rounds/s, the
+   wire bytes a round (``MeshComm.bytes_per_round``) and peak memory a
+   rank.
 6. The LM slice (the port's fourth): gemma2-2b at full width (26 layers, d=2304,
    vocab 256,000, random bf16 weights from seed 0). ``flash_attention``
    (K5) is held against its plain version at every shape the phase
@@ -148,6 +171,14 @@
    kernel). 8 bf16 decode steps against an S=8192 cache of random
    keys and values (26 x 8 launches, the keys split over blocks). Then 8
    decode steps under ``torch.profiler``.
+   Then gemma2-9b (42 layers, d=3584, GQA 16/8, head_dim 256; random
+   bf16 weights, about 18.5 GB, drawn on the CPU tensor by tensor): K5
+   held at its decode shapes (B=4, S_max=160, with the compiled
+   yardstick) and its float32 check's (no yardstick: a compile a shape),
+   ``launch.serve.main`` at B=4, prompt 128, 32 new tokens (42 x 159 K5
+   launches), and the float32 forward against teacher-forced decode at a
+   [4, 64] prompt (rel < 2e-3); tok/s, prefill s, peak memory and the
+   weight draw's seconds.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
    counted launches; K2's, K3's and K4's shapes also carry ``chain_ms``,
@@ -157,8 +188,8 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, lifecycle and scenario numbers with the card, and the
-   script's seconds.
+   LM-serving, lifecycle, scenario and Scale numbers with the card, and
+   the script's seconds.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -248,11 +279,15 @@ ZFULL = dict(FULL, l=256)
 SPARSE_SRC = "src/repro_torch/kernels/lda_sparse/csrc/lda_sparse.cu"
 SPARSE_TPU = "src/repro/kernels/lda_sparse/lda_sparse.py:53"
 GOLDEN = dict(k=3, v=20, l=8, n=8, t=20)   # tests/test_golden.py's run
-FIG1_SEEDS = (0, 1, 2)                     # the §4 experiment's seeds
+# the §4 experiment's seeds, and below the scenario sweep's: one each
+# since the Scale phases were added (the script's time; the spread over
+# seeds comes from launch.deleda_experiment --seeds and
+# launch.scenario_bench --seeds run on their own)
+FIG1_SEEDS = (0,)
 # the scenario slice: launch/scenario_bench's sweep over these seeds, and
 # one scenario at full width (FULL's model and network, async edges) with
 # a rewiring WS graph, drops, churn, a cold join and a leave
-SCEN_SEEDS = (0, 1, 2)
+SCEN_SEEDS = (0,)
 SCEN_FULL = dict(segments=4, drop=0.1, churn=0.2, join=(49, 20),
                  leave=(7, 30), record=10)
 # the lifecycle phase: FULL's sync run with forgetting (the reference
@@ -269,6 +304,24 @@ LM_ARGS = ["--arch", LM["arch"], "--full", "--batch", str(LM["batch"]),
            "--seed", str(LM["seed"]), "--device", "cuda"]
 PREFILL_S = 8192
 LONG_STEPS = 8                 # decode steps against an S=8192 cache
+# gemma2-9b served at full width (bf16, about 18.5 GB of weights drawn on
+# the CPU), and its float32 forward/decode consistency at a short prompt
+LM9 = dict(arch="gemma2_9b", batch=4, prompt=128, gen=32, seed=0,
+           f32_prompt=64)
+LM9_ARGS = ["--arch", LM9["arch"], "--full", "--batch", str(LM9["batch"]),
+            "--prompt-len", str(LM9["prompt"]), "--gen", str(LM9["gen"]),
+            "--seed", str(LM9["seed"]), "--device", "cuda"]
+# the Scale layer: FULL's sync run with vocab_shards=4 (saved at round
+# 20, killed, resumed); run_mesh_deleda at FULL's width over NCCL (one
+# rank per card), and over gloo as a 2 x 2 node x vocab grid of ranks on
+# one card against a flat (2, 1) mesh of the same seed; each mesh run
+# after MESH_WARMUP rounds of the same mesh in the same ranks (a rank's
+# first rounds load every CUDA module it uses)
+SCALE_SHARDS = 4
+MESH_GRID_ROUNDS = 10
+MESH_WARMUP = 2
+MESH_TIMEOUT_S = 300           # a spawned mesh phase that hangs fails
+MESH_TRAJ = dict(k=3, v=24, l=8, n=8, docs=4, batch=2, rounds=12, every=6)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # K5's row check: the RMS over D of the error of one output row (batch,
 # query, head) over the RMS of that row of the plain version. A bf16 row
@@ -1913,15 +1966,17 @@ def _library_attention(rt, q, k, v, case, q_offset):
     return call
 
 
-def _flash_cases(rt):
-    """Every K5 shape the LM phase launches: serving's decode against the
-    cache (bf16), the f32 consistency check's forward and decode, the
-    bf16 prefill at S=8192 and the bf16 decode against an S=8192 cache;
-    local (window 4096) and global layers. Each names the kernel variant
-    it must take: "wgmma" for the bf16 prefill at D=256, "decode" for
-    every Sq=1 launch, "fma" for the float32 forward."""
-    cfg = rt.get_config(LM["arch"])
-    s_max = LM["prompt"] + LM["gen"]
+def _flash_cases(rt, lm=LM, prefix="", long=True):
+    """Every K5 shape an LM phase launches: serving's decode against the
+    cache (bf16), the f32 consistency check's forward and decode (at
+    ``lm["f32_prompt"]``), and with ``long`` the bf16 prefill at S=8192
+    and the bf16 decode against an S=8192 cache; local (window 4096) and
+    global layers, each phase named with ``prefix``. Each names the
+    kernel variant it must take: "wgmma" for the bf16 prefill at D=256,
+    "decode" for every Sq=1 launch, "fma" for the float32 forward."""
+    cfg = rt.get_config(lm["arch"])
+    s_max = lm["prompt"] + lm["gen"]
+    f32 = lm.get("f32_prompt", lm["prompt"])
     base = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
                 softcap=cfg.attn_softcap, scale=cfg.query_scale)
     cases = []
@@ -1929,24 +1984,27 @@ def _flash_cases(rt):
                          ("global", rt.flash_ops.GLOBAL_WINDOW)):
         w = dict(base, window=window, kind=kind)
         cases += [
-            dict(w, phase=f"decode_{kind}", b=LM["batch"], sq=1, sk=s_max,
-                 dtype=torch.bfloat16, tol=3e-2, variant="decode",
-                 offsets=(0, s_max // 2 - 1, s_max - 2)),
-            dict(w, phase=f"prefill_{kind}", b=1, sq=PREFILL_S,
-                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
-                 variant="wgmma", offsets=(0,), control="tile"),
-            dict(w, phase=f"f32_forward_{kind}", b=LM["batch"],
-                 sq=LM["prompt"], sk=LM["prompt"], dtype=torch.float32,
+            dict(w, phase=f"{prefix}decode_{kind}", b=lm["batch"], sq=1,
+                 sk=s_max, dtype=torch.bfloat16, tol=3e-2,
+                 variant="decode", offsets=(0, s_max // 2 - 1, s_max - 2)),
+            dict(w, phase=f"{prefix}f32_forward_{kind}", b=lm["batch"],
+                 sq=f32, sk=f32, dtype=torch.float32,
                  tol=2e-5, variant="fma", offsets=(0,), control="bf16"),
-            dict(w, phase=f"f32_decode_{kind}", b=LM["batch"], sq=1,
-                 sk=LM["prompt"], dtype=torch.float32, tol=2e-5,
+            dict(w, phase=f"{prefix}f32_decode_{kind}", b=lm["batch"], sq=1,
+                 sk=f32, dtype=torch.float32, tol=2e-5,
                  variant="decode", control="bf16",
-                 offsets=(0, LM["prompt"] // 2 - 1, LM["prompt"] - 1)),
-            dict(w, phase=f"decode_long_{kind}", b=LM["batch"], sq=1,
-                 sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
-                 variant="decode", control="split",
-                 offsets=(PREFILL_S - LONG_STEPS,
-                          PREFILL_S - LONG_STEPS // 2 - 1, PREFILL_S - 1))]
+                 offsets=(0, f32 // 2 - 1, f32 - 1))]
+        if long:
+            cases += [
+                dict(w, phase=f"{prefix}prefill_{kind}", b=1, sq=PREFILL_S,
+                     sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
+                     variant="wgmma", offsets=(0,), control="tile"),
+                dict(w, phase=f"{prefix}decode_long_{kind}", b=lm["batch"],
+                     sq=1, sk=PREFILL_S, dtype=torch.bfloat16, tol=3e-2,
+                     variant="decode", control="split",
+                     offsets=(PREFILL_S - LONG_STEPS,
+                              PREFILL_S - LONG_STEPS // 2 - 1,
+                              PREFILL_S - 1))]
     return cases
 
 
@@ -2034,6 +2092,10 @@ def _hold_flash(rt, dev, case, seed):
     (bound, by), pairs = _flash_bound(case, mid)
     lib_ms, lib_err = None, None
     try:
+        if not case.get("library", True):
+            raise NotImplementedError("not measured here (a compile per "
+                                      "shape; this function's library "
+                                      "time is its 2b row's)")
         call = _library_attention(rt, q, k, v, case, mid)
         lib_ms, out = _time_ms(call, reps=5, warmup=2, device_only=True)
         lib_err = float((out.float() - plain(mid).float()).abs().max())
@@ -2304,6 +2366,495 @@ def _drive_lm(rt, dev):
     return rows, lm
 
 
+def _drive_lm9(rt, dev):
+    """gemma2-9b (42 layers, d=3584, GQA 16/8, head_dim 256): K5 held at
+    every shape first, then ``launch.serve.main`` at full width in bf16
+    (counted) and the float32 forward/decode consistency at a short
+    prompt (counted). Returns (rows, numbers)."""
+    cfg = rt.get_config(LM9["arch"])
+    t0 = time.perf_counter()
+    # the served decode shapes get the compiled yardstick; the float32
+    # check's shapes (2b's function at other head counts) do not
+    rows = [_hold_flash(rt, dev, dict(c, library="f32" not in c["phase"]),
+                        130 + i) for i, c in
+            enumerate(_flash_cases(rt, LM9, prefix="9b_", long=False))]
+    hold_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    per_layer = {kind: sum(1 for i in range(cfg.n_layers)
+                           if (i % 2 == 0) == (kind == "local"))
+                 for kind in ("local", "global")}
+    steps = LM9["prompt"] + LM9["gen"] - 1
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    served = rt.lm_serve.main(LM9_ARGS)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    del served["params"]
+    _lm_counts(rt, rows, "gemma2-9b serving",
+               {f"9b_decode_{k}": n * steps for k, n in per_layer.items()})
+    tokens = served["tokens"]
+    if (tuple(tokens.shape) != (LM9["batch"], steps + 1)
+            or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError("gemma2-9b served tokens out of shape or "
+                             "vocabulary")
+    del tokens
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = rt.lm.init_decoder_lm(
+        cfg32, torch.Generator(device=dev).manual_seed(1))
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, s0 = LM9["batch"], LM9["f32_prompt"]
+    toks = torch.randint(0, cfg.vocab_size, (b, s0), generator=g, device=dev)
+    rt.zero_counts()
+    full = rt.lm.forward(cfg32, params, toks).logits
+    caches = rt.lm.init_caches(cfg32, b, s0, dev)
+    dec = torch.empty_like(full)
+    for t in range(s0):
+        out = rt.lm.decode_step(cfg32, params, toks[:, t:t + 1], caches, t)
+        caches = out.caches
+        dec[:, t] = out.logits[:, 0]
+    torch.cuda.synchronize()
+    _lm_counts(rt, rows, "gemma2-9b f32 consistency",
+               {**{f"9b_f32_forward_{k}": n for k, n in per_layer.items()},
+                **{f"9b_f32_decode_{k}": n * s0
+                   for k, n in per_layer.items()}})
+    rel = float((dec - full).abs().max() / (full.abs().max() + 1e-9))
+    f32_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    if not (rel < 2e-3 and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"gemma2-9b f32 decode vs forward: rel {rel} "
+                             f"(limit 2e-3)")
+    del params, caches, full, dec, out
+    torch.cuda.empty_cache()
+    k5_ms = sum(r["ms"] * r["launches"] for r in rows
+                if r["phase"] in ("9b_decode_local", "9b_decode_global"))
+    lm9 = {"arch": cfg.name, "n_params": cfg.n_params(),
+           "batch": LM9["batch"], "prompt_len": LM9["prompt"],
+           "gen": LM9["gen"], "weight_draw_s": served["init_sec"],
+           "prefill_s": served["prefill_sec"],
+           "decode_s": served["decode_sec"],
+           "decode_tok_per_s": served["decode_tok_per_sec"],
+           "serve_peak_mem_gb": serve_peak / 1e9,
+           "k5_ms_in_serving": k5_ms,
+           "k5_launches_in_serving": cfg.n_layers * steps,
+           "f32_prompt": s0, "f32_decode_vs_forward_rel": rel,
+           "k5_holds_s": hold_s, "f32_check_s": f32_s, "card": rt.card}
+    print(f"gemma2-9b serving B={LM9['batch']} prompt {LM9['prompt']} gen "
+          f"{LM9['gen']}: weights drawn in {lm9['weight_draw_s']:.2f} s, "
+          f"prefill {lm9['prefill_s']:.3f} s, decode {lm9['decode_s']:.3f} "
+          f"s = {lm9['decode_tok_per_s']:.1f} tok/s, peak "
+          f"{lm9['serve_peak_mem_gb']:.2f} GB; f32 forward vs decode_step "
+          f"[{b}, {s0}] rel {rel:.3g}; K5 holds {hold_s:.1f} s, f32 check "
+          f"{f32_s:.1f} s | {rt.card}", flush=True)
+    return rows, lm9
+
+
+def _drive_scale_sim(rt, dev, full_rows, cfg_lda, corpus):
+    """FULL's sync run with ``vocab_shards=4`` against the same run at
+    ``vocab_shards=1`` from the same initial statistic (bit for bit: the
+    shard axis is a view), its launches at the held full-width shapes,
+    rounds/s and peak memory; then saved at round 20, killed (step 40
+    deleted, an uncommitted step-40 directory left) and resumed, bit for
+    bit against the uninterrupted run."""
+    f = FULL
+    spec = rt.evaluation.EvalSpec(words=corpus.test_words,
+                                  mask=corpus.test_mask,
+                                  key=rt.tf3.key(1, dev), n_particles=10,
+                                  probe_nodes=f["probes"])
+    sched, degs = rt.deleda.make_run_inputs(
+        rt.graph.complete_graph(f["n"]), f["rounds"], seed=0,
+        kind="matching")
+
+    def cfg(shards):
+        return rt.deleda.DeledaConfig(lda=cfg_lda, mode="sync",
+                                      batch_size=f["batch"],
+                                      eval_every=f["every"],
+                                      vocab_shards=shards)
+
+    one = rt.deleda.init_state(cfg(1), rt.tf3.key(3, dev), f["n"])
+    four = dataclasses.replace(one, stats=one.stats.reshape(
+        f["n"], f["k"], SCALE_SHARDS, f["v"] // SCALE_SHARDS))
+
+    def run(shards, state, **kw):
+        return rt.deleda.run_deleda(cfg(shards), state.key, corpus.words,
+                                    corpus.mask, sched, degs, f["rounds"],
+                                    record_every=f["every"], eval_spec=spec,
+                                    init=state, **kw)
+
+    dense = run(1, one)
+    want_stats, want_lp = dense.stats.cpu(), dense.eval_lp.cpu()
+    want_cons = dense.consensus.cpu()
+    del dense
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    wall, trace = _seconds(lambda: run(SCALE_SHARDS, four))
+    peak = torch.cuda.max_memory_allocated()
+    where = f"scale: vocab_shards={SCALE_SHARDS} sync matching complete"
+    got = _tally(rt, full_rows, where)
+    e = _expected("sync", sched, f["every"])
+    _check_phases(where, got, {"full_sync_mix": e["gossip_mix"],
+                               "full_sync": e["lda_gibbs"],
+                               "full_inloop": e["lda_l2r"]})
+    if tuple(trace.state.stats.shape) != (f["n"], f["k"], SCALE_SHARDS,
+                                          f["v"] // SCALE_SHARDS):
+        raise AssertionError(f"{where}: carried {trace.state.stats.shape}")
+    same = (torch.equal(trace.stats.cpu(), want_stats)
+            and torch.equal(trace.eval_lp.cpu(), want_lp)
+            and torch.equal(trace.consensus.cpu(), want_cons))
+    if not same:
+        err = float((trace.stats.cpu() - want_stats).abs().max())
+        raise AssertionError(f"{where}: differs from vocab_shards=1, max "
+                             f"{err}")
+    print(f"{where}: equal to vocab_shards=1 bit for bit (stats, LP, "
+          f"consensus); {wall:.3f} s = {f['rounds'] / wall:.2f} rounds/s, "
+          f"peak {peak / 1e9:.2f} GB | {rt.card}", flush=True)
+    del trace
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt:
+        run(SCALE_SHARDS, four, save_every=f["every"], checkpoint_dir=ckpt)
+        _kill_step(ckpt, f["rounds"])
+        rt.zero_counts()
+        resume_s, resumed = _seconds(lambda: rt.deleda.run_deleda(
+            cfg(SCALE_SHARDS), four.key, corpus.words, corpus.mask, sched,
+            degs, f["rounds"], record_every=f["every"], eval_spec=spec,
+            restore_from=ckpt))
+        got = _tally(rt, full_rows, where + " (resumed)")
+        half = f["rounds"] - f["every"]
+        _check_phases(where + " (resumed)", got,
+                      {"full_sync_mix": half, "full_sync": half,
+                       "full_inloop": 1})
+    if not (resumed.state.t == f["rounds"]
+            and torch.equal(resumed.stats.cpu(), want_stats)
+            and torch.equal(resumed.eval_lp.cpu(), want_lp[-1:])
+            and torch.equal(resumed.consensus.cpu(), want_cons[-1:])):
+        raise AssertionError(f"{where}: the resumed run differs")
+    print(f"{where}: saved every {f['every']}, killed, resumed from "
+          f"{f['every']} in {resume_s:.3f} s, bit for bit | {rt.card}",
+          flush=True)
+    del resumed, one, four
+    torch.cuda.empty_cache()
+    return {"vocab_shards": SCALE_SHARDS, "rounds": f["rounds"],
+            "wall_s": wall, "rounds_per_s": f["rounds"] / wall,
+            "peak_mem_gb": peak / 1e9, "bitwise_vs_vs1": True,
+            "resume_s": resume_s, "resume_bitwise": True, "card": rt.card}
+
+
+def _mesh_lda(rt, size):
+    return rt.lda.LDAConfig(n_topics=size["k"], vocab_size=size["v"],
+                            alpha=0.5, doc_len_max=size["l"],
+                            n_gibbs=30 if size is FULL else 4,
+                            n_gibbs_burnin=15 if size is FULL else 2)
+
+
+def _mesh_rank(job):
+    """One rank of a mesh phase (spawned by ``gossip_sim.launch``): runs
+    ``job["runs"]`` through ``run_mesh_deleda`` with the launch counters
+    set to 0 just before each, and returns on rank 0 every rank's counts
+    by shape, peak memory and exchange/compute seconds, with rank 0's
+    gathered results."""
+    import torch.distributed as dist
+    rt = _Port()
+    from repro_torch.core import gossip
+    from repro_torch.launch import gossip_sim
+    out = {}
+    for name, run in job["runs"]:
+        size = FULL if run.get("full") else MESH_TRAJ
+        dev = run.get("device", "cuda")
+        cfg_lda = _mesh_lda(rt, size)
+        corpus = rt.data.make_corpus(
+            cfg_lda, rt.tf3.key(0), rt.data.CorpusSpec(
+                n_nodes=size["n"], docs_per_node=size["docs"],
+                n_test=FULL["n_test"] if size is FULL else 4))
+        spec = None
+        if run.get("every"):
+            spec = rt.evaluation.EvalSpec(
+                words=corpus.test_words, mask=corpus.test_mask,
+                key=rt.tf3.key(1), n_particles=10 if size is FULL else 3,
+                probe_nodes=FULL["probes"] if size is FULL else 2)
+        times = {"gossip": 0.0, "exchange": 0.0, "update": 0.0}
+        real_mix, real_build = rt.comm.MeshComm.mix_matching, \
+            gossip_sim.build_update_step
+        real_exchange = gossip.exchange
+
+        def sync():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+        def timed(key, fn):
+            def wrapper(*a, **kw):
+                sync()
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                sync()
+                # lint: allow(timer-no-barrier)
+                times[key] += time.perf_counter() - t0
+                return res
+            return wrapper
+
+        flat = run.get("flat")
+
+        def mesh_run(rounds, every, spec):
+            return gossip_sim.run_mesh_deleda(
+                cfg_lda, corpus.words, corpus.mask,
+                rt.graph.complete_graph(size["n"]), rounds, size["batch"],
+                seed=0,
+                mesh=(rt.comm.make_grid_mesh(*flat) if flat else None),
+                mesh_shape=run.get("grid"), eval_every=every,
+                eval_spec=spec, device=dev)
+
+        warm = mesh_run(MESH_WARMUP, 0, None).seconds if run.get("full") \
+            else None
+        try:
+            if run.get("timed"):
+                rt.comm.MeshComm.mix_matching = timed("gossip", real_mix)
+                gossip.exchange = timed("exchange", real_exchange)
+                gossip_sim.build_update_step = (
+                    lambda *a, **kw: timed("update", real_build(*a, **kw)))
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            rt.zero_counts()
+            res = mesh_run(run["rounds"], run.get("every", 0), spec)
+            sync()
+        finally:
+            rt.comm.MeshComm.mix_matching = real_mix
+            gossip_sim.build_update_step = real_build
+            gossip.exchange = real_exchange
+        mine = {"by_shape": rt.by_shape(),
+                "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if dev == "cuda" else 0.0),
+                "times": times}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        mc = rt.comm.MeshComm(rt.comm.make_grid_mesh(*run["grid"]),
+                              vocab_axis="vocab") if run.get("grid") else \
+            rt.comm.MeshComm(rt.comm.make_grid_mesh(*flat)) if flat else \
+            rt.comm.MeshComm()
+        sched = rt.comm.GossipSchedule.draw_matchings(
+            rt.graph.complete_graph(size["n"]), run["rounds"],
+            np.random.default_rng(0))
+        wire = [mc.bytes_per_round((size["n"], size["k"], size["v"]), 4, p)
+                for p in sched.data]
+        if dist.get_rank() == 0:
+            out[name] = {"stats": res.stats.cpu(), "steps": res.steps.cpu(),
+                         "consensus": res.consensus,
+                         "eval_lp": res.eval_lp, "seconds": res.seconds,
+                         "warmup_seconds": warm,
+                         "ranks": every, "world": dist.get_world_size(),
+                         "wire_bytes_per_round": wire,
+                         "partners": sched.data}
+        del res
+    return out
+
+
+def _mesh_expected(rt, partners, n_dev, n_vocab, size, every, probes):
+    """Launches a mesh run must make, summed over its ranks, by kernel
+    shape: ``lda_gibbs`` once a round on every rank at B = n_local x
+    batch; ``gossip_mix`` once a round on every rank whose node-device
+    has an intra-rank pair (at that count of pairs); ``lda_l2r`` once an
+    evaluation on the vocab-0 rank of the probe nodes' block."""
+    n = size["n"]
+    n_local, v_local = n // n_dev, size["v"] // n_vocab
+    want = {("lda_gibbs", (n_local * size["batch"], size["l"], size["k"],
+                           30 if size is FULL else 4)):
+            n_dev * n_vocab * len(partners)}
+    for row in partners:
+        (_src, act), _passes = rt.comm._route_matching(row, n_dev)
+        for a in range(n_dev):
+            pairs = int(act[a * n_local:(a + 1) * n_local].sum()) // 2
+            if pairs:
+                key = ("gossip_mix", (n_local, size["k"], v_local, pairs))
+                want[key] = want.get(key, 0) + n_vocab
+    if every:
+        key = ("lda_l2r", (probes * FULL["n_test"], size["l"], size["k"], 10,
+                           False))
+        want[key] = len(partners) // every
+    return want
+
+
+def _mesh_rows(rt, dev, want, phase, seed):
+    """Each kernel shape a mesh run launches (``want``'s keys), held
+    against its plain version."""
+    rows = []
+    for i, (name, key) in enumerate(sorted(want, key=str)):
+        if name == "gossip_mix":
+            n, k, v, pairs = key
+            row = _hold_mix(rt, dev, dict(n=n, k=k, v=v, pairs=pairs),
+                            seed + i)
+        elif name == "lda_gibbs":
+            b, l, k, s = key
+            row = _hold_gibbs(rt, dev, dict(b=b, l=l, s=s, burnin=s // 2,
+                                            lengths=("poisson", 2, l)),
+                              k, FULL["v"], seed + i)
+        else:
+            b, l, k, p, _cw = key
+            row = _hold_l2r(rt, dev, dict(b=b, l=l, p=p,
+                                          lengths=("poisson", 2, l)),
+                            k, FULL["v"], seed + i)
+        row["phase"] = phase
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_counts(rows, ranks, want, where):
+    """The ranks' launches by shape, summed, onto the held rows and
+    against ``want``."""
+    got = {}
+    for mine in ranks:
+        for key, n in mine["by_shape"].items():
+            got[key] = got.get(key, 0) + n
+    if got != want:
+        raise AssertionError(f"{where}: launches by shape {got}, the "
+                             f"rounds and evals say {want}")
+    by_key = {(r["name"], r["key"]): r for r in rows}
+    for key, n in got.items():
+        by_key[key]["launches"] += n
+    print(f"{where}: launches by shape (summed over ranks) as the rounds "
+          f"and evals imply: {sum(got.values())} launches", flush=True)
+
+
+def _drive_mesh(rt, dev):
+    """The mesh phases (slice 10). Returns (held rows, numbers)."""
+    from repro_torch.launch import gossip_sim
+    f = FULL
+    cards = torch.cuda.device_count()
+    world = max(r for r in range(1, cards + 1) if f["n"] % r == 0)
+    rounds = f["rounds"]
+    sched = rt.comm.GossipSchedule.draw_matchings(
+        rt.graph.complete_graph(f["n"]), rounds, np.random.default_rng(0))
+    want_nccl = _mesh_expected(rt, sched.data, world, 1, f, f["every"],
+                               f["probes"])
+    g_sched = sched.data[:MESH_GRID_ROUNDS]
+    want_grid = _mesh_expected(rt, g_sched, 2, 2, f, 0, 0)
+    want_flat = _mesh_expected(rt, g_sched, 2, 1, f, 0, 0)
+    rows = (_mesh_rows(rt, dev, want_nccl, "mesh_nccl", 300)
+            + _mesh_rows(rt, dev, {**want_grid, **want_flat}, "mesh_gloo",
+                         400))
+    t0 = time.perf_counter()
+    nccl = gossip_sim.launch(_mesh_rank, world, "nccl", ({"runs": [
+        ("nccl", {"full": True, "rounds": rounds, "every": f["every"],
+                  "timed": True})]},), timeout_s=MESH_TIMEOUT_S)
+    nccl_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    run = nccl["nccl"]
+    _mesh_counts([r for r in rows if r["phase"] == "mesh_nccl"],
+                 run["ranks"], want_nccl, f"mesh nccl x{world}")
+    if not (bool(torch.isfinite(run["stats"]).all())
+            and (run["steps"] == rounds).all()
+            and run["eval_lp"].shape == (rounds // f["every"], f["probes"])
+            and np.isfinite(run["eval_lp"]).all()):
+        raise AssertionError("mesh nccl: non-finite or misshapen output")
+    wire = run["wire_bytes_per_round"]
+    nccl_out = {"ranks": world, "rounds": rounds,
+                "seconds": run["seconds"],
+                "rounds_per_s": rounds / run["seconds"],
+                "warmup_seconds": run["warmup_seconds"],
+                "per_round": {f"{t}_s": run["ranks"][0]["times"][t] / rounds
+                              for t in ("gossip", "update")},
+                "wire_bytes_per_round": float(np.mean(wire)),
+                "peak_mem_gb_per_rank": [r["peak_gb"] for r in run["ranks"]],
+                "k2_shape_per_rank": f"B={f['n'] // world * f['batch']} "
+                                     f"L={f['l']} K={f['k']} S=30",
+                "eval_lp": run["eval_lp"].tolist(),
+                "consensus": run["consensus"], "spawn_and_run_s": nccl_s}
+    note = ("" if world > 1 else
+            "; one rank: every pair is intra-rank, no pass crosses ranks")
+    print(f"mesh nccl: {world} rank(s) on {cards} card(s), {rounds} rounds "
+          f"in {run['seconds']:.3f} s = {nccl_out['rounds_per_s']:.2f} "
+          f"rounds/s (after {MESH_WARMUP} warm-up rounds in "
+          f"{run['warmup_seconds']:.3f} s; a round's gossip "
+          f"{nccl_out['per_round']['gossip_s']:.4f} s, update "
+          f"{nccl_out['per_round']['update_s']:.4f} s), "
+          f"{nccl_out['wire_bytes_per_round']:.0f} wire bytes a "
+          f"round (bytes_per_round), peak "
+          f"{nccl_out['peak_mem_gb_per_rank']} GB a rank{note} | {rt.card}",
+          flush=True)
+    del nccl, run
+    torch.cuda.empty_cache()
+
+    # the grid over gloo: 4 ranks on the one card, then the flat (2, 1)
+    # mesh of the same seed in 2 ranks; and the grid's trajectory on the
+    # card against the CPU at the test shapes
+    t0 = time.perf_counter()
+    grid = gossip_sim.launch(_mesh_rank, 4, "gloo", ({"runs": [
+        ("grid", {"full": True, "rounds": MESH_GRID_ROUNDS, "grid": (2, 2),
+                  "timed": True}),
+        ("traj_cuda", {"rounds": MESH_TRAJ["rounds"], "grid": (2, 2),
+                       "every": MESH_TRAJ["every"]}),
+        ("traj_cpu", {"rounds": MESH_TRAJ["rounds"], "grid": (2, 2),
+                      "every": MESH_TRAJ["every"], "device": "cpu"})]},),
+        timeout_s=MESH_TIMEOUT_S)
+    grid_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    flat = gossip_sim.launch(_mesh_rank, 2, "gloo", ({"runs": [
+        ("flat", {"full": True, "rounds": MESH_GRID_ROUNDS, "flat": (2, 1),
+                  "timed": True})]},), timeout_s=MESH_TIMEOUT_S)
+    gloo_rows = [r for r in rows if r["phase"] == "mesh_gloo"]
+    _mesh_counts(gloo_rows, grid["grid"]["ranks"], want_grid,
+                 "mesh gloo grid 2x2")
+    _mesh_counts(gloo_rows, flat["flat"]["ranks"], want_flat,
+                 "mesh gloo flat (2, 1)")
+    g, fl = grid["grid"], flat["flat"]
+    err = float((g["stats"] - fl["stats"]).abs().max())
+    cons_rel = float(np.max(np.abs(np.array(g["consensus"])
+                                   - np.array(fl["consensus"]))
+                            / np.abs(np.array(fl["consensus"]))))
+    if not (err < 1e-5 and cons_rel < 1e-4
+            and torch.equal(g["steps"], fl["steps"])):
+        raise AssertionError(f"mesh grid (2, 2) vs flat (2, 1): stats "
+                             f"{err} (bound 1e-5), consensus rel {cons_rel} "
+                             f"(bound 1e-4)")
+    tc, tp = grid["traj_cuda"], grid["traj_cpu"]
+    mass = abs(float(tc["stats"].double().sum() / tp["stats"].double().sum())
+               - 1.0)
+    ent = torch.isclose(tc["stats"], tp["stats"], rtol=3e-3, atol=1e-5)
+    lp_rel = float(np.max(np.abs(tc["eval_lp"] / tp["eval_lp"] - 1.0)))
+    if not (torch.equal(tc["steps"], tp["steps"]) and mass < 1e-4
+            and bool(ent.all()) and lp_rel < 1e-5):
+        raise AssertionError(f"mesh grid trajectory, card vs CPU: mass rel "
+                             f"{mass}, entries {bool(ent.all())}, LP rel "
+                             f"{lp_rel}")
+    per_round = {k: {f"{t}_s": max(r["times"][t] for r in ranks)
+                     / MESH_GRID_ROUNDS
+                     for t in ("exchange", "gossip", "update")}
+                 for k, ranks in (("grid", g["ranks"]),
+                                  ("flat", fl["ranks"]))}
+    gloo_out = {"rounds": MESH_GRID_ROUNDS,
+                "grid_seconds": g["seconds"], "flat_seconds": fl["seconds"],
+                "grid_warmup_seconds": g["warmup_seconds"],
+                "flat_warmup_seconds": fl["warmup_seconds"],
+                "grid_rounds_per_s": MESH_GRID_ROUNDS / g["seconds"],
+                "flat_rounds_per_s": MESH_GRID_ROUNDS / fl["seconds"],
+                "per_round": per_round,
+                "grid_wire_bytes_per_round":
+                    float(np.mean(g["wire_bytes_per_round"])),
+                "flat_wire_bytes_per_round":
+                    float(np.mean(fl["wire_bytes_per_round"])),
+                "grid_peak_mem_gb_per_rank": [r["peak_gb"]
+                                              for r in g["ranks"]],
+                "grid_vs_flat_max_abs": err,
+                "grid_vs_flat_consensus_rel": cons_rel,
+                "traj_mass_rel": mass, "traj_lp_rel": lp_rel,
+                "spawn_and_run_s": grid_s}
+    print(f"mesh gloo grid 2x2 on one card: {MESH_GRID_ROUNDS} rounds in "
+          f"{g['seconds']:.3f} s (flat (2, 1): {fl['seconds']:.3f} s); a "
+          f"round's exchange {per_round['grid']['exchange_s']:.3f} s (the "
+          f"whole gossip step {per_round['grid']['gossip_s']:.3f} s) "
+          f"against the update step {per_round['grid']['update_s']:.3f} s "
+          f"(flat {per_round['flat']['exchange_s']:.3f} / "
+          f"{per_round['flat']['gossip_s']:.3f} / "
+          f"{per_round['flat']['update_s']:.3f}); wire bytes a round "
+          f"{gloo_out['grid_wire_bytes_per_round']:.0f} (flat "
+          f"{gloo_out['flat_wire_bytes_per_round']:.0f}); grid vs flat: "
+          f"stats {err:.3g} (bound 1e-5), consensus rel {cons_rel:.3g} "
+          f"(bound 1e-4); card vs CPU at the test shapes: mass rel "
+          f"{mass:.3g}, LP rel {lp_rel:.3g} | {rt.card}", flush=True)
+    return rows, {"nccl": nccl_out, "gloo_grid": gloo_out, "card": rt.card}
+
+
 def _kernel_line(name, route, source, replaces, rows, node_err):
     """One kernel's entry: totals, the most launched shape, every shape."""
     top = max(rows, key=lambda r: r["launches"])
@@ -2461,10 +3012,23 @@ def main() -> int:
     b_rows, bench = _drive_sparse_bench(rt, dev)
     torch.cuda.empty_cache()
 
-    # phase 7: the LM slice, gemma2-2b served through K5
+    # phase 6a: the Scale layer (slice 10): vocab_shards in the simulation,
+    # then run_mesh_deleda over NCCL and as a node x vocab grid over gloo
+    full_inputs = _full_width_inputs(rt, dev)
+    scale = {"sim": _drive_scale_sim(rt, dev, full_rows, *full_inputs)}
+    del full_inputs
+    torch.cuda.empty_cache()
+    mesh_rows, scale["mesh"] = _drive_mesh(rt, dev)
+    torch.cuda.empty_cache()
+
+    # phase 7: the LM slice, gemma2-2b, then gemma2-9b, served through K5
     lm_rows, lm = _drive_lm(rt, dev)
     torch.cuda.empty_cache()
-    all_rows = rows + d_rows + s_rows + z_rows + b_rows + lm_rows
+    lm9_rows, lm["gemma2_9b"] = _drive_lm9(rt, dev)
+    lm_rows += lm9_rows
+    torch.cuda.empty_cache()
+    all_rows = (rows + d_rows + s_rows + z_rows + b_rows + mesh_rows
+                + lm_rows)
     for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
@@ -2498,6 +3062,7 @@ def main() -> int:
     print(json.dumps({"lm_serving": lm}))
     print(json.dumps({"lifecycle": life}))
     print(json.dumps({"scenarios": scen}))
+    print(json.dumps({"scale": scale}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

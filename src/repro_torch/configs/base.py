@@ -142,10 +142,11 @@ class ModelConfig:
         return int(full - all_experts + active)
 
 
-ARCH_IDS = ["gemma2_2b", "granite_3_8b", "qwen2_72b"]
+ARCH_IDS = ["gemma2_2b", "gemma2_9b", "granite_3_8b", "qwen2_72b"]
 
 _ALIASES = {
     "gemma2-2b": "gemma2_2b",
+    "gemma2-9b": "gemma2_9b",
     "granite-3-8b": "granite_3_8b",
     "qwen2-72b": "qwen2_72b",
 }

@@ -1,5 +1,6 @@
-"""Core layers of the port: threefry, lda, estep, oem, evaluation,
-serving, graph, gossip, comm, deleda and the scenario layer."""
+"""Core layers of the port: threefry, lda, estep, gibbs, oem,
+evaluation, serving, graph, gossip, comm (the simulated and the mesh
+communicators), deleda and the scenario layer."""
 
 from repro_torch.core.scenario import (CompiledScenario, GraphSequence,
                                        Scenario, paper_scenario)

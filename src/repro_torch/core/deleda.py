@@ -53,8 +53,14 @@ schedule on the host once per segment.
 The scenario layer (:mod:`.scenario`) compiles rewiring graphs, drops,
 churn and joins into the schedule, ``[T, n]`` degrees and these masks.
 
-Not ported yet (a later slice): the vocab-sharded carry (a restored
-``[n, K, S, V/S]`` statistic is served, not trained).
+The Scale layer: ``vocab_shards = S`` carries the statistic as
+``[n, K, S, V/S]``, a pure layout of the contiguous V axis. The loop
+works on its dense ``[n, K, V]`` view (the same storage), so ``SimComm``
+mixes it flattened, the E-step gathers and scatters the dense columns and
+the trajectory is the ``vocab_shards = 1`` one bit for bit; the trace is
+densely shaped, the carried :class:`TrainState` and its checkpoints keep
+the sharded shape. :mod:`repro_torch.launch.gossip_sim` runs the same
+algorithm with nodes (and vocab blocks) on separate ranks.
 """
 
 from __future__ import annotations
@@ -112,6 +118,8 @@ class DeledaConfig:
                                      # discounted by (tau0 + t)^-kappa at
                                      # each local update (oem.forgetting_rho);
                                      # None = the paper's plain eq. (2)
+    vocab_shards: int = 1            # Scale layer: the carry is
+                                     # [n, K, S, V/S], a layout of V
 
     def __post_init__(self):
         if self.mode not in ("sync", "async"):
@@ -125,6 +133,13 @@ class DeledaConfig:
         if self.corpus_layout not in ("dense", "unique"):
             raise ValueError(f"corpus_layout must be dense|unique, "
                              f"got {self.corpus_layout!r}")
+        if self.vocab_shards < 1:
+            raise ValueError(f"vocab_shards must be >= 1, "
+                             f"got {self.vocab_shards}")
+        if self.lda.vocab_size % self.vocab_shards:
+            raise ValueError(
+                f"vocab_shards={self.vocab_shards} must divide "
+                f"vocab_size={self.lda.vocab_size}")
         if self.max_unique < 0:
             raise ValueError(f"max_unique must be >= 0 (0 = use L), "
                              f"got {self.max_unique}")
@@ -144,8 +159,8 @@ class DeledaConfig:
 class TrainState:
     """The carried state of one decentralized training run.
 
-    stats          [n, K, V] per-node sufficient statistics (a restored
-                   vocab-sharded checkpoint holds [n, K, S, V/S]);
+    stats          [n, K, V] per-node sufficient statistics, or
+                   [n, K, S, V/S] under ``vocab_shards = S``;
     steps          [n] int32 per-node local update counters (the async
                    variant's rho_{t_i} clocks);
     key            [2] the run key; step t draws from fold_in(key, t);
@@ -193,6 +208,7 @@ class SegmentTrace(NamedTuple):
 
 class DeledaTrace(NamedTuple):
     stats: torch.Tensor            # [n, K, V] final per-node statistics
+                                   # (dense under vocab_shards too)
     steps: torch.Tensor            # [n] int32 per-node update counters
     history: torch.Tensor          # [R, n, K, V] recorded snapshots
     consensus: torch.Tensor        # [R] ||S - mean||_F at each record
@@ -206,11 +222,17 @@ def init_state(config: DeledaConfig, key: torch.Tensor, n: int) -> TrainState:
     ``(k_init, k_run) = split(key)``; node i starts from
     ``init_stats(split(k_init, n)[i])`` and ``k_run`` is the run key, as
     in the reference (its initial statistics are within one ulp of the
-    reference's, see ``threefry.exponential``).
+    reference's, see ``threefry.exponential``). Under ``vocab_shards = S``
+    the statistic is reshaped to ``[n, K, S, V/S]`` after the draws, as
+    in the reference: the same floats.
     """
     key = tf3.key_data(key)
     k_init, k_run = tf3.split(key)
     stats0 = init_stats(config.lda, tf3.split(k_init, n))     # [n, K, V]
+    if config.vocab_shards > 1:
+        k, v = config.lda.n_topics, config.lda.vocab_size
+        stats0 = stats0.reshape(n, k, config.vocab_shards,
+                                v // config.vocab_shards)
     return TrainState(stats=stats0,
                       steps=torch.zeros((n,), dtype=torch.int32,
                                         device=key.device),
@@ -359,7 +381,9 @@ def train_steps(config: DeledaConfig, state: TrainState,
     so a run split into segments gives the same bits as one segment. The
     unique layout converts the corpus once here (``dense_to_unique``
     with U = ``max_unique`` or L) and the evaluator's documents with U =
-    L, as the reference does (its streams depend on that U).
+    L, as the reference does (its streams depend on that U). A
+    vocab-sharded ``[n, K, S, V/S]`` statistic is trained through its
+    dense view; the history is dense, the returned state keeps the shape.
     """
     t_seg = schedule.n_rounds
     if t_seg % record_every != 0:
@@ -369,10 +393,6 @@ def train_steps(config: DeledaConfig, state: TrainState,
     if schedule.n_nodes != n:
         raise ValueError(f"schedule has {schedule.n_nodes} nodes, the "
                          f"corpus {n}")
-    if state.stats.dim() != 3:
-        raise NotImplementedError(
-            "training a vocab-sharded [n, K, S, V/S] statistic waits for "
-            "the port's vocab_shards (module 13); serve it instead")
     live = _check_mask("live", live, (t_seg, n))
     member_rec = _check_mask("member_rec", member_rec,
                              (t_seg // record_every, n))
@@ -406,7 +426,8 @@ def train_steps(config: DeledaConfig, state: TrainState,
                else torch.as_tensor(member_rec, device=dev))
     step_keys = tf3.fold_in_data(
         state.key, torch.arange(state.t, state.t + t_seg, device=dev))
-    stats = state.stats.clone()
+    carry = state.stats.clone(memory_format=torch.contiguous_format)
+    stats = carry.view(n, carry.shape[1], -1)        # the dense view
     steps = state.steps.clone()
     history = torch.empty((t_seg // record_every,) + tuple(stats.shape),
                           dtype=stats.dtype, device=dev)
@@ -434,7 +455,7 @@ def train_steps(config: DeledaConfig, state: TrainState,
                 eval_spec.key, ew, em, stats[:probe], config.lda.tau,
                 config.lda.alpha, eval_spec.n_particles, eval_spec.layout))
     new_state = TrainState(
-        stats=stats, steps=steps, key=state.key, t=state.t + t_seg,
+        stats=carry, steps=steps, key=state.key, t=state.t + t_seg,
         stats_version=state.stats_version + t_seg,
         member=state.member if members is None else members[-1].clone(),
         cursor=state.cursor)
@@ -567,14 +588,10 @@ def run_deleda(config: DeledaConfig, key: torch.Tensor,
                   else member[record_every - 1::record_every])
 
     if restore_from is not None:
-        stored = ckpt_mod.stored_shapes(restore_from).get("stats", ())
-        if len(stored) == 4:
-            raise NotImplementedError(
-                f"{restore_from} holds a vocab-sharded statistic {stored}; "
-                f"resuming it waits for the port's vocab_shards (module "
-                f"13). serve_topics --restore-vocab-shards serves it")
-        state = restore_state(restore_from, state_like(config, n, dev),
-                              config=config)
+        state = restore_state(
+            restore_from,
+            state_like(config, n, dev, vocab_shards=config.vocab_shards),
+            config=config)
         t0 = state.t
         if t0 >= n_steps:
             raise ValueError(f"checkpoint at step {t0} has nothing left "
@@ -621,7 +638,7 @@ def run_deleda(config: DeledaConfig, key: torch.Tensor,
         consensus = torch.cat([p.consensus for p in parts])
         eval_lp = (torch.cat([p.eval_lp for p in parts])
                    if parts[0].eval_lp is not None else None)
-    return DeledaTrace(stats=state.stats, steps=state.steps,
+    return DeledaTrace(stats=state.dense_stats(), steps=state.steps,
                        history=history, consensus=consensus,
                        eval_lp=eval_lp, state=state)
 

@@ -33,8 +33,11 @@ resampling every particle's earlier assignments before scoring position n.
   ``estep.unique_view``; :func:`heldout_lp_from_stats` takes the slots
   as given.
 
-Not ported: the serial pre-draw estimator (the fused scan is
-bit-compatible with it in the reference).
+The reference's serial estimators (:func:`left_to_right_from_beta_w`,
+:func:`left_to_right_unique_from_beta_w`) are bit-compatible with its
+fused scan per document, so here they are the fused estimator under
+their public names; :func:`left_to_right_log_likelihood` is the public
+words-and-beta entry.
 """
 
 from __future__ import annotations
@@ -48,7 +51,9 @@ from repro_torch.core import threefry as tf3
 
 __all__ = [
     "EvalSpec", "LAYOUTS", "l2r_position_scores", "left_to_right_fused",
-    "left_to_right_unique_fused", "ll_slab_from_beta",
+    "left_to_right_unique_fused", "left_to_right_from_beta_w",
+    "left_to_right_unique_from_beta_w", "left_to_right_log_likelihood",
+    "ll_slab_from_beta",
     "ll_slab_from_stats", "auto_chunk_docs", "evaluate_heldout",
     "heldout_lp_from_stats", "log_perplexity",
     "log_perplexity_from_stats", "relative_perplexity_error",
@@ -181,6 +186,46 @@ def left_to_right_unique_fused(key: torch.Tensor, doc_ids: torch.Tensor,
     return _scores(key, doc_ids, beta_w, counts, alpha, n_particles, True)
 
 
+def left_to_right_from_beta_w(key: torch.Tensor, doc_ids: torch.Tensor,
+                              beta_w: torch.Tensor, mask: torch.Tensor,
+                              alpha: float,
+                              n_particles: int = 10) -> torch.Tensor:
+    """``[B]`` per-document LL estimates from likelihood rows ``[B, L, K]``
+    (gathered from a dense beta or a statistic), mask ``[B, L]``, doc_ids
+    ``[B]`` the documents' stream identities. The reference's serial
+    estimator, which its fused scan equals per document: here the
+    ``lda_l2r`` kernel on the card, its plain scan on the CPU."""
+    return left_to_right_fused(key, doc_ids, beta_w, mask, alpha,
+                               n_particles)
+
+
+def left_to_right_unique_from_beta_w(key: torch.Tensor,
+                                     doc_ids: torch.Tensor,
+                                     beta_w: torch.Tensor,
+                                     counts: torch.Tensor, alpha: float,
+                                     n_particles: int = 10) -> torch.Tensor:
+    """The count-weighted twin of :func:`left_to_right_from_beta_w`: rows
+    ``[B, U, K]`` of the unique slots' words, counts ``[B, U]`` (0 =
+    padding); slot n contributes ``c_n * log p``."""
+    return left_to_right_unique_fused(key, doc_ids, beta_w, counts, alpha,
+                                      n_particles)
+
+
+def left_to_right_log_likelihood(key: torch.Tensor, words: torch.Tensor,
+                                 mask: torch.Tensor, beta: torch.Tensor,
+                                 alpha: float, n_particles: int = 10,
+                                 doc_ids: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """``[B]`` per-document log-likelihood estimates of words/mask
+    ``[B, L]`` under beta ``[K, V]``. ``doc_ids`` (default ``arange(B)``)
+    key the per-document streams: pass global ids to score a slice of a
+    larger set with the full batch's bits."""
+    if doc_ids is None:
+        doc_ids = torch.arange(words.shape[0], device=words.device)
+    return left_to_right_fused(key, doc_ids, beta.T[words], mask, alpha,
+                               n_particles)
+
+
 def _ll_from_beta_w(key, doc_ids, beta_w, weights, alpha, n_particles,
                     layout):
     """The estimator of ``layout``; in "unique" the weights are counts."""
@@ -291,7 +336,8 @@ def heldout_lp_from_stats(key: torch.Tensor, words: torch.Tensor,
                           n_particles: int = 10,
                           layout: str = "dense") -> torch.Tensor:
     """LP straight from a statistic: scalar for stats ``[K, V]``, ``[A]``
-    for A statistics ``[A, K, V]``.
+    for A statistics ``[A, K, V]`` or vocab-sharded ``[A, K, S, V/S]``
+    (a single sharded ``[K, S, V/S]`` goes in as ``stats[None]``).
 
     The documents of all A statistics go to the estimator as one
     ``[A*B, L]`` batch (one ``lda_l2r`` launch on the card); every
@@ -302,10 +348,10 @@ def heldout_lp_from_stats(key: torch.Tensor, words: torch.Tensor,
     if stats.dim() == 2:
         return heldout_lp_from_stats(key, words, mask, stats[None], tau,
                                      alpha, n_particles, layout)[0]
-    a = stats.shape[0]
+    a, k = stats.shape[:2]
     b, l = words.shape
     beta_w = estep_mod.beta_w_from_stats_batch(
-        stats, words.expand(a, b, l), tau)
+        stats.reshape(a, k, -1), words.expand(a, b, l), tau)
     doc_ids = torch.arange(b, device=words.device).repeat(a)
     ll = _ll_from_beta_w(key, doc_ids, beta_w.reshape(a * b, l, -1),
                          mask.repeat(a, 1), alpha, n_particles, layout)

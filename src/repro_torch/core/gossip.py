@@ -15,14 +15,19 @@ The n agents' iterates are stacked on a leading axis, ``S`` of shape
   the ``gossip_mix`` kernel on the card;
 * **consensus** — :func:`consensus_distance` (the left side of paper
   eq. (3)) and :func:`consensus_envelope` (its right side).
-
-The mesh half (``gossip_round_mesh``) is not ported yet.
+* **the mesh half** — :func:`exchange` (one bidirectional hop between two
+  ranks, the reference's ``ppermute``), :func:`gossip_round_mesh` (one
+  matching round when each rank of a group is one node) and
+  :func:`consensus_distance_mesh` (eq. (3)'s left side over node blocks
+  spread on ranks, with one ``[K, V]``-sized sum per vocab shard and a
+  scalar all-reduce, never the whole statistic on one rank).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.graph import Graph
 
@@ -30,6 +35,7 @@ __all__ = [
     "draw_edge_schedule", "draw_matching_schedule", "hypercube_partners",
     "ring_matchings", "mix_edge", "mix_matching", "mixing_matrix_edge",
     "mixing_matrix_matching", "consensus_distance", "consensus_envelope",
+    "exchange", "gossip_round_mesh", "consensus_distance_mesh",
 ]
 
 
@@ -180,3 +186,88 @@ def consensus_envelope(lambda2: float, rhos: np.ndarray,
         acc = acc * lam_sqrt + rhos[t] * g_norm
         env[t] = acc
     return env
+
+
+# ----------------------------------------------------------------------------
+# Mesh-substrate gossip (torch.distributed point-to-point)
+# ----------------------------------------------------------------------------
+
+def exchange(x: torch.Tensor, peer: int, stage: bool = False,
+             group=None) -> torch.Tensor:
+    """Send ``x`` to rank ``peer`` and receive its tensor of the same shape:
+    one ``batch_isend_irecv`` pair, the reference's one-hop ``ppermute``.
+    ``stage`` moves a card tensor through pinned host memory (gloo); the
+    result is on ``x``'s device. ``peer`` is a global rank."""
+    send = x.contiguous()
+    if stage and send.is_cuda:
+        send = torch.empty(send.shape, dtype=send.dtype,
+                           pin_memory=True).copy_(send)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, peer, group),
+           dist.P2POp(dist.irecv, recv, peer, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(x.device, non_blocking=False)
+
+
+def _ppermute_pairs(partners: np.ndarray) -> list[tuple[int, int]]:
+    """The (src, dst) permutation realizing a partner exchange."""
+    return [(int(i), int(p)) for i, p in enumerate(partners) if p != i]
+
+
+def gossip_round_mesh(tree, partners: np.ndarray, group=None,
+                      stage: bool = False):
+    """One matching round over a group of ranks, each rank one node.
+
+    ``partners`` is the ``[group size]`` involution over the group's ranks;
+    every tensor x of ``tree`` (a tensor, or a list, tuple or dict of
+    them) becomes ``(x + x_partner) / 2`` through one :func:`exchange`;
+    a self-partnered rank keeps x and moves nothing.
+    """
+    me = dist.get_rank(group)
+    perm = dict(_ppermute_pairs(partners))
+    if me not in perm:
+        return tree
+    peer = (perm[me] if group is None
+            else dist.get_global_rank(group, perm[me]))
+
+    def mix(x):
+        return 0.5 * (x + exchange(x, peer, stage=stage))
+
+    if isinstance(tree, torch.Tensor):
+        return mix(tree)
+    if isinstance(tree, dict):
+        return {k: mix(v) for k, v in tree.items()}
+    return type(tree)(mix(v) for v in tree)
+
+
+def consensus_distance_mesh(stats: torch.Tensor, comm,
+                            member: np.ndarray | None = None
+                            ) -> torch.Tensor:
+    """:func:`consensus_distance` of node blocks spread over a mesh.
+
+    ``stats`` is this rank's block (``comm.shard`` of the global one),
+    ``comm`` a :class:`~repro_torch.core.comm.MeshComm`, ``member`` the
+    global ``[n]`` host bool (None: every node). The member rows are
+    summed locally, the sums all-reduced over the node group (one block
+    of this vocab shard's size), the squared deviations summed locally
+    and one scalar all-reduced over the world. Every rank gets the value.
+    """
+    n = stats.shape[0] * comm.n_devices
+    rows = comm.node_rows(n)
+    if member is None:
+        total = stats.sum(dim=0)
+        count = n
+        w = None
+    else:
+        member = np.asarray(member, bool)
+        w = torch.as_tensor(member[rows], device=stats.device).to(
+            stats.dtype).reshape((-1,) + (1,) * (stats.dim() - 1))
+        total = (stats * w).sum(dim=0)
+        count = max(int(member.sum()), 1)
+    mean = comm.all_reduce(total, comm.axis_name) / float(count)
+    dev = stats - mean
+    if w is not None:
+        dev = dev * w
+    sq = comm.all_reduce((dev * dev).sum().reshape(1))
+    return torch.sqrt(sq[0])

@@ -85,6 +85,84 @@ def test_ll_slab_from_stats_matches_reference():
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("seed,p", [(5, 4), (6, 3)])
+def test_public_left_to_right_entries_match_reference(seed, p):
+    """The reference's public serial estimator and its words-and-beta
+    entry (global doc ids and the default arange)."""
+    stats, words, mask = _inputs(seed)
+    beta = stats / stats.sum(-1, keepdims=True)
+    beta_w = np.take(beta.T, words, axis=0)
+    ids = np.arange(9, 9 + words.shape[0], dtype=np.int32)
+    key = jax.random.key(seed + 40)
+    with reference_mode():
+        want_bw = np.asarray(ref_eval.left_to_right_from_beta_w(
+            key, jnp.asarray(ids), jnp.asarray(beta_w), jnp.asarray(mask),
+            ALPHA, p))
+        want_ll = np.asarray(ref_eval.left_to_right_log_likelihood(
+            key, jnp.asarray(words), jnp.asarray(mask), jnp.asarray(beta),
+            ALPHA, p, doc_ids=jnp.asarray(ids)))
+        want_def = np.asarray(ref_eval.left_to_right_log_likelihood(
+            key, jnp.asarray(words), jnp.asarray(mask), jnp.asarray(beta),
+            ALPHA, p))
+    got_bw = evaluation.left_to_right_from_beta_w(
+        port_key(key), to_torch(ids), to_torch(beta_w), to_torch(mask),
+        ALPHA, p).numpy()
+    got_ll = evaluation.left_to_right_log_likelihood(
+        port_key(key), to_torch(words).long(), to_torch(mask),
+        to_torch(beta), ALPHA, p, doc_ids=to_torch(ids)).numpy()
+    got_def = evaluation.left_to_right_log_likelihood(
+        port_key(key), to_torch(words).long(), to_torch(mask),
+        to_torch(beta), ALPHA, p).numpy()
+    np.testing.assert_allclose(got_bw, want_bw, rtol=1e-5)
+    np.testing.assert_allclose(got_ll, want_ll, rtol=1e-5)
+    np.testing.assert_allclose(got_def, want_def, rtol=1e-5)
+
+
+def test_public_unique_entry_matches_reference():
+    stats, words, mask = _inputs(7, b=7, l=14, k=4, v=9)
+    key = jax.random.key(47)
+    with reference_mode():
+        uw, counts = ref_estep.unique_view(jnp.asarray(words),
+                                           jnp.asarray(mask))
+        beta = jnp.asarray(stats / stats.sum(-1, keepdims=True))
+        beta_w = jnp.take(beta.T, uw, axis=0)
+        ids = jnp.arange(words.shape[0], dtype=jnp.int32)
+        want = np.asarray(ref_eval.left_to_right_unique_from_beta_w(
+            key, ids, beta_w, counts, ALPHA, 4))
+    assert int(np.asarray(counts).max()) > 1
+    got = evaluation.left_to_right_unique_from_beta_w(
+        port_key(key), to_torch(ids), to_torch(beta_w), to_torch(counts),
+        ALPHA, 4).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["dense", "unique"])
+def test_heldout_lp_from_vocab_sharded_stats_matches_reference(layout):
+    """Probe statistics [P, K, S, V/S] (the Scale layer's carry) give the
+    reference's per-statistic LP from [K, S, V/S], and the dense [P, K, V]
+    LP bit for bit."""
+    rng = np.random.default_rng(11)
+    p, k, s, v = 3, 4, 4, 32
+    stats = rng.random((p, k, s, v // s), dtype=np.float32)
+    _st, words, mask = _inputs(12, b=6, l=8, k=k, v=v)
+    key = jax.random.key(13)
+    with reference_mode():
+        w, m = jnp.asarray(words), jnp.asarray(mask)
+        if layout == "unique":
+            w, m = ref_estep.dense_to_unique(w, m)
+        want = np.array([float(ref_eval.heldout_lp_from_stats(
+            key, w, m, jnp.asarray(stats[i]), 1e-2, ALPHA, 4, layout))
+            for i in range(p)])
+    tw, tm = to_torch(np.asarray(w)), to_torch(np.asarray(m))
+    got = evaluation.heldout_lp_from_stats(
+        port_key(key), tw, tm, to_torch(stats), 1e-2, ALPHA, 4, layout)
+    dense = evaluation.heldout_lp_from_stats(
+        port_key(key), tw, tm, to_torch(stats.reshape(p, k, v)), 1e-2,
+        ALPHA, 4, layout)
+    assert torch.equal(got, dense)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
 def test_evaluate_heldout_chunk_invariant():
     """Chunks of 1, 7 and B give the same bits, via stats or beta."""
     stats, words, mask = _inputs(4, b=11, l=9, k=4)

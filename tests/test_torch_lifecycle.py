@@ -337,11 +337,13 @@ def test_restore_validation(port_corpus, tmp_path):
         deleda.run_deleda(*args, record_every=REC,
                           init=deleda.init_state(_cfg(), tf3.key(4), N),
                           restore_from=str(tmp_path / "done"))
-    # a reference run with vocab_shards > 1 is served, not resumed
+    # a vocab_shards=4 checkpoint resumes only under vocab_shards=4: the
+    # restore names the stored and the expected shapes, as the
+    # reference's does
     st = deleda.init_state(_cfg(), tf3.key(4), N)
     deleda.save_state(str(tmp_path / "vs4"), dataclasses.replace(
         st, stats=st.stats.reshape(N, 3, 4, 6), t=REC))
-    with pytest.raises(NotImplementedError, match="module 13"):
+    with pytest.raises(ValueError, match=r"\(10, 3, 4, 6\).*vocab_shards"):
         deleda.run_deleda(*args, record_every=REC,
                           restore_from=str(tmp_path / "vs4"))
 

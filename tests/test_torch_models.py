@@ -36,7 +36,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from torch_parity import reference_mode  # noqa: E402
 
-ARCHS = ["gemma2_2b", "granite_3_8b", "qwen2_72b"]
+ARCHS = ["gemma2_2b", "gemma2_9b", "granite_3_8b", "qwen2_72b"]
 B, S = 2, 20            # S > 16: the gemma2 smoke window bites
 REL = 1e-4              # port vs reference, float32, of max|logit|
 

@@ -16,6 +16,12 @@ paper scale takes a few minutes a seed on one CPU:
 
   PYTHONPATH=src:tests:. JAX_PLATFORMS=cpu python tests/torch_level3.py \\
       --scale scenario_paper --seeds 0 1 2
+
+``--compare PORT_JSON LEVEL3_JSON`` compares, regime by regime, the
+port's sweep on the card (``scenario_bench -o PORT_JSON``) with the
+reference's of a run of this script (its last line saved as
+LEVEL3_JSON): each metric's mean over the seeds, its standard error, and
+the difference in units of their combined standard error.
 """
 
 from __future__ import annotations
@@ -94,12 +100,45 @@ def port_sweep_on_reference_corpus(scale_name: str, seed: int,
             verbose=False, **kw)
 
 
+def _mean_se(values) -> tuple[float, float]:
+    x = np.asarray(values, np.float64)
+    return float(x.mean()), float(x.std(ddof=1) / np.sqrt(len(x)))
+
+
+def compare(port_json: str, level3_json: str) -> dict:
+    """Per regime and metric: (port mean, SE, reference mean, SE, z)."""
+    with open(port_json) as f:
+        port = json.load(f)
+    with open(level3_json) as f:
+        ref = json.load(f)
+    out = {}
+    for name in port["regimes_over_seeds"]:
+        row = {}
+        for m in METRICS:
+            pm, pse = _mean_se([port["per_seed"][str(s)]["runs"][name][m]
+                                for s in port["seeds"]])
+            rm, rse = _mean_se([ref[s]["runs"][name][m][0] for s in ref])
+            se = float(np.hypot(pse, rse))
+            row[m] = {"port": [pm, pse], "reference": [rm, rse],
+                      "z": (pm - rm) / se if se else 0.0}
+        out[name] = row
+        print(f"{name:>9s} " + "  ".join(
+            f"{m} port {r['port'][0]:+.4f}±{r['port'][1]:.4f} reference "
+            f"{r['reference'][0]:+.4f}±{r['reference'][1]:.4f} z "
+            f"{r['z']:+.2f}" for m, r in row.items()), flush=True)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", default="scenario_smoke",
                     choices=["scenario_smoke", "scenario_paper"])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
+    ap.add_argument("--compare", nargs=2, metavar=("PORT_JSON",
+                                                   "LEVEL3_JSON"))
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
     out = {}
     for seed in args.seeds:
         ref = reference_sweep(args.scale, seed)
