@@ -171,14 +171,44 @@
    kernel). 8 bf16 decode steps against an S=8192 cache of random
    keys and values (26 x 8 launches, the keys split over blocks). Then 8
    decode steps under ``torch.profiler``.
-   Then gemma2-9b (42 layers, d=3584, GQA 16/8, head_dim 256; random
-   bf16 weights, about 18.5 GB, drawn on the CPU tensor by tensor): K5
+   Then gemma2-9b (d=3584, GQA 16/8, head_dim 256; its 42 layers cut
+   to 10 since PR 23; random bf16 weights drawn on the CPU): K5
    held at its decode shapes (B=4, S_max=160, with the compiled
    yardstick) and its float32 check's (no yardstick: a compile a shape),
    ``launch.serve.main`` at B=4, prompt 128, 32 new tokens (42 x 159 K5
    launches), and the float32 forward against teacher-forced decode at a
    [4, 64] prompt (rel < 2e-3); tok/s, prefill s, peak memory and the
    weight draw's seconds.
+6a. The training slice (PR 23), gemma2-2b at full width:
+   a. ``gossip_mix`` (K1) in bfloat16 held exactly against its plain
+      version (and the bf16 ``0.5 * (a + b)``) at every [4, ...] leaf
+      shape of the stacked 4-node parameter tree with 2 pairs, and on
+      the one-value path at [20, 5, 51]; float32 K1 stays held above.
+   b. K5 at the training shapes (B=4 and B=2, S=512, H=8/4, D=256,
+      bf16 "wgmma", local and global; the trajectory's float32 [2, 64]
+      "fma") as every K5 shape, and its gradient (``ref.attention_bwd``,
+      torch ops) against ``torch.autograd.grad`` of the plain version
+      (``BWD_TOL``), the forward and the backward timed apart.
+   c. ``launch.train.main --arch gemma2_2b --full --mode standard``
+      (26 layers, AdamW, remat "full", B=4, S=512, 10 steps), counted:
+      26 x 2 K5 launches a step by shape and variant, every loss and
+      grad norm finite, the loss falling; s/step, tokens/s, peak
+      memory; one more step under ``torch.profiler`` (device time in
+      K5, the attention backward, the optimizer, other matmuls; the
+      card's idle share).
+   d. ``train_decentralized`` at full width, depth cut to 4 layers, 4
+      gloo ranks sharing the card (one node a rank), H = 2, 5 steps, B=2,
+      once each with allreduce, gossip-hypercube and gossip-ring[1]:
+      spread 0 after the exact syncs and > 0 after ring[1], the loss
+      finite and falling, K5 counted on every rank and no K1 launched
+      (no pair inside a rank); s/step, a sync's seconds and bytes beside
+      ``collective_bytes_per_sync``, peak memory a rank. Then
+      ``sync_tree_sim`` (exact hypercube) over a stacked 4-node copy of
+      that tree on the card: K1's launches by shape equal leaves x
+      rounds, and every node ends equal bit for bit.
+   e. The granite smoke variant in float32, 3 AdamW and 3 Adafactor
+      steps on the card and on the CPU from the same params: losses
+      rtol 1e-5, params within the CPU tests' AdamW bound; TF32 off.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
    counted launches; K2's, K3's and K4's shapes also carry ``chain_ms``,
@@ -188,8 +218,9 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, lifecycle, scenario and Scale numbers with the card, and
-   the script's seconds.
+   LM-serving, lifecycle, scenario, Scale and training numbers with the
+   card, and the script's seconds (each phase's end is printed as it
+   comes).
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -304,13 +335,16 @@ LM_ARGS = ["--arch", LM["arch"], "--full", "--batch", str(LM["batch"]),
            "--seed", str(LM["seed"]), "--device", "cuda"]
 PREFILL_S = 8192
 LONG_STEPS = 8                 # decode steps against an S=8192 cache
-# gemma2-9b served at full width (bf16, about 18.5 GB of weights drawn on
-# the CPU), and its float32 forward/decode consistency at a short prompt
+# gemma2-9b served at full width, its depth cut from 42 to 10 layers since
+# PR 23 (the training phase needs the time; the 42-layer run's numbers are
+# PR 22's), bf16 weights drawn on the CPU, and its float32 forward/decode
+# consistency at a short prompt
 LM9 = dict(arch="gemma2_9b", batch=4, prompt=128, gen=32, seed=0,
-           f32_prompt=64)
+           f32_prompt=64, layers=10)
 LM9_ARGS = ["--arch", LM9["arch"], "--full", "--batch", str(LM9["batch"]),
             "--prompt-len", str(LM9["prompt"]), "--gen", str(LM9["gen"]),
-            "--seed", str(LM9["seed"]), "--device", "cuda"]
+            "--seed", str(LM9["seed"]), "--layers", str(LM9["layers"]),
+            "--device", "cuda"]
 # the Scale layer: FULL's sync run with vocab_shards=4 (saved at round
 # 20, killed, resumed); run_mesh_deleda at FULL's width over NCCL (one
 # rank per card), and over gloo as a 2 x 2 node x vocab grid of ranks on
@@ -328,6 +362,21 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # carries two roundings of its values (under 4e-3); a 512-key split or a
 # 64-key tile dropped from 8,192 keys moves some row by over a fifth
 ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the training slice: gemma2-2b at full width and depth in standard mode
+# (the cosine schedule warms up over 100 steps: 1e-4 .. 1e-3 here); the
+# decentralized run at full width, depth cut to 4 layers (the 590M
+# embedding sets a node's size), 4 gloo ranks on the one card at batch 2
+# a node (4 x 15 GB); the float32 trajectory at the granite smoke width
+TRAIN = dict(arch="gemma2_2b", batch=4, seq=512, steps=10)
+TRAIN_LR = 1e-2
+DEC = dict(layers=4, nodes=4, local_steps=2, steps=5, batch=2,
+           syncs=("allreduce", "gossip-hypercube", "gossip-ring[1]"))
+DEC_TIMEOUT_S = 600
+TRAJ = dict(arch="granite_3_8b", batch=2, seq=64, steps=3)
+TRAJ_LR = 1e-2
+# the attention backward against autograd of the plain version, of each
+# tensor's max (``_hold_train_attention``)
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:90"
 
@@ -807,6 +856,12 @@ class _Port:
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.launch import serve as lm_serve
         from repro_torch.models import transformer as lm
+        from repro_torch import convert
+        from repro_torch.configs import smoke_variant
+        from repro_torch.core import decentralized
+        from repro_torch.data.lm_pipeline import TokenPipeline
+        from repro_torch.launch import mesh, steps, train
+        from repro_torch.optim import make_lr_schedule
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
@@ -822,6 +877,12 @@ class _Port:
         self.flash_ops, self.flash_ref = flash_ops, flash_ref
         self.lm, self.lm_serve, self.get_config = lm, lm_serve, get_config
         self.flex = None      # compiled flex_attention, the K5 yardstick
+        # the training slice
+        self.train, self.steps, self.dec, self.mesh = (train, steps,
+                                                       decentralized, mesh)
+        self.convert, self.smoke, self.pipeline = (convert, smoke_variant,
+                                                   TokenPipeline)
+        self.schedule = make_lr_schedule
 
         self.card = ""        # the card's name and power limit, for prints
         self.t_add_ns = 0.0   # one dependent float32 add (the chain bound)
@@ -2367,11 +2428,12 @@ def _drive_lm(rt, dev):
 
 
 def _drive_lm9(rt, dev):
-    """gemma2-9b (42 layers, d=3584, GQA 16/8, head_dim 256): K5 held at
-    every shape first, then ``launch.serve.main`` at full width in bf16
+    """gemma2-9b (d=3584, GQA 16/8, head_dim 256; its 42 layers cut to
+    ``LM9["layers"]``): K5 held at every shape first, then ``launch.serve.main`` at full width in bf16
     (counted) and the float32 forward/decode consistency at a short
     prompt (counted). Returns (rows, numbers)."""
-    cfg = rt.get_config(LM9["arch"])
+    cfg = dataclasses.replace(rt.get_config(LM9["arch"]),
+                              n_layers=LM9["layers"])
     t0 = time.perf_counter()
     # the served decode shapes get the compiled yardstick; the float32
     # check's shapes (2b's function at other head counts) do not
@@ -2431,8 +2493,8 @@ def _drive_lm9(rt, dev):
     torch.cuda.empty_cache()
     k5_ms = sum(r["ms"] * r["launches"] for r in rows
                 if r["phase"] in ("9b_decode_local", "9b_decode_global"))
-    lm9 = {"arch": cfg.name, "n_params": cfg.n_params(),
-           "batch": LM9["batch"], "prompt_len": LM9["prompt"],
+    lm9 = {"arch": cfg.name, "layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "batch": LM9["batch"], "prompt_len": LM9["prompt"],
            "gen": LM9["gen"], "weight_draw_s": served["init_sec"],
            "prefill_s": served["prefill_sec"],
            "decode_s": served["decode_sec"],
@@ -2442,7 +2504,8 @@ def _drive_lm9(rt, dev):
            "k5_launches_in_serving": cfg.n_layers * steps,
            "f32_prompt": s0, "f32_decode_vs_forward_rel": rel,
            "k5_holds_s": hold_s, "f32_check_s": f32_s, "card": rt.card}
-    print(f"gemma2-9b serving B={LM9['batch']} prompt {LM9['prompt']} gen "
+    print(f"gemma2-9b ({cfg.n_layers} of 42 layers) serving B="
+          f"{LM9['batch']} prompt {LM9['prompt']} gen "
           f"{LM9['gen']}: weights drawn in {lm9['weight_draw_s']:.2f} s, "
           f"prefill {lm9['prefill_s']:.3f} s, decode {lm9['decode_s']:.3f} "
           f"s = {lm9['decode_tok_per_s']:.1f} tok/s, peak "
@@ -2855,6 +2918,553 @@ def _drive_mesh(rt, dev):
     return rows, {"nccl": nccl_out, "gloo_grid": gloo_out, "card": rt.card}
 
 
+# ----------------------------------------------------------------------------
+# The training slice (PR 23): K1 in bf16, K5's gradient, the LM trainer
+# ----------------------------------------------------------------------------
+
+K5_NAMES = re.compile(r"flash_fwd_kernel|flash_wgmma_kernel|decode_kernel|"
+                      r"combine_kernel")
+MATMUL_NAMES = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
+
+
+def _train_args(extra):
+    return ["--arch", TRAIN["arch"], "--full", "--seq", str(TRAIN["seq"]),
+            "--device", "cuda", *extra]
+
+
+def _hold_mix_bf16(rt, dev, shape, pairs, seed):
+    """K1 in bfloat16 against its plain version (exact), and their times.
+    Bound: two rows read and two written per pair, 2 bytes an element."""
+    n = shape[0]
+    row = int(np.prod(shape[1:]))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    stats = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    partners = _mix_partners(n, pairs, seed)
+    plan = rt.mix_ops.pairs_of(partners)
+    plain_ms, want = _time_ms(
+        lambda: rt.mix_ref.mix_pairs_ref_(stats.clone(), plan), reps=3)
+    got = rt.mix_ops.mix_pairs_(stats.clone(), plan)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError(f"gossip_mix bf16 differs from its plain "
+                             f"version at {shape}, {pairs} pairs: max error "
+                             f"{err}")
+    # the bf16 bits are the bf16 sum halved (the reference's bf16 op)
+    i, j = (torch.as_tensor(plan[:, c], device=dev) for c in (0, 1))
+    if not torch.equal(got[i], 0.5 * (stats[i] + stats[j])):
+        raise AssertionError(f"gossip_mix bf16 at {shape}: not the bf16 "
+                             f"0.5 * (a + b)")
+    del got, want
+    work = stats.clone()
+    ms, _ = _time_ms(lambda: rt.mix_ops.mix_pairs_(work, plan), reps=10,
+                     warmup=2, device_only=True)
+    bound, by = _bound(4 * pairs * row * 2, 2 * pairs * row)
+    txt = f"[{', '.join(map(str, shape))}] bf16 pairs={pairs}"
+    print(f"gossip_mix vs plain at {txt}: exact; {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
+          flush=True)
+    return dict(name="gossip_mix", key=(*shape, pairs, "bf16"), shape=txt,
+                phase="train_sync_sim", ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, max_abs_err=err, launches=0)
+
+
+def _train_flash_cases(rt):
+    """K5's shapes on the training path: gemma2-2b's at the standard run's
+    batch and at the decentralized run's (bf16, "wgmma", local and
+    global), and the smoke trajectory's float32 shape ("fma")."""
+    cfg = rt.get_config(TRAIN["arch"])
+    base = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
+                softcap=cfg.attn_softcap, scale=cfg.query_scale,
+                sq=TRAIN["seq"], sk=TRAIN["seq"], dtype=torch.bfloat16,
+                tol=3e-2, variant="wgmma", offsets=(0,), control="tile")
+    cases = []
+    for b, tag in ((TRAIN["batch"], "train"), (DEC["batch"], "dec")):
+        for kind, window in (("local", cfg.window),
+                             ("global", rt.flash_ops.GLOBAL_WINDOW)):
+            cases.append(dict(base, b=b, window=window, kind=kind,
+                              phase=f"{tag}_{kind}",
+                              library=tag == "train"))
+    smoke = rt.smoke(rt.get_config(TRAJ["arch"]))
+    cases.append(dict(phase="traj_f32", b=TRAJ["batch"], sq=TRAJ["seq"],
+                      sk=TRAJ["seq"], h=smoke.n_heads, hkv=smoke.n_kv,
+                      d=smoke.hd, softcap=smoke.attn_softcap,
+                      scale=smoke.query_scale or smoke.hd ** -0.5,
+                      window=rt.flash_ops.GLOBAL_WINDOW, kind="global",
+                      dtype=torch.float32, tol=2e-5, variant="fma",
+                      offsets=(0,), control="bf16", library=False))
+    return cases
+
+
+def _hold_train_attention(rt, dev, case, seed):
+    """K5's forward held as every other shape (``_hold_flash``), then its
+    gradient: the wrapper's dQ/dK/dV (``ref.attention_bwd``) against
+    ``torch.autograd.grad`` of the plain version on the same inputs and
+    output gradient, each within ``BWD_TOL`` of that tensor's max (float32
+    2e-5; bf16 1e-2: both compute in float32 from the same bf16 inputs,
+    so they differ by the float32 sum order and one bf16 rounding of the
+    result, under 4e-3 of an element). The backward is timed alone
+    (CUDA events over its torch ops) beside its bound: 5 products of 2 D
+    operations per visible pair and head (S, dP, dV, dQ, dK)."""
+    row = _hold_flash(rt, dev, case, seed)
+    b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h", "hkv",
+                                               "d"))
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    q, do = (torch.randn((b, sq, h, d), generator=g, device=dev).to(
+        case["dtype"]) for _ in range(2))
+    k, v = (torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
+        case["dtype"]) for _ in range(2))
+    kw = dict(window=case["window"], softcap=case["softcap"],
+              scale=case["scale"])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(rt.flash_ops.flash_attention(*leaves, **kw),
+                              leaves, do)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def heads(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], d)
+
+    def plain_grad():
+        out = rt.flash_ref.attention_ref(*map(heads, plain), **kw)
+        return torch.autograd.grad(out.reshape(b, h, sq, d).transpose(1, 2),
+                                   plain, do)
+    want = plain_grad()
+    tol = BWD_TOL[case["dtype"]]
+    rel = max(float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max()) for a, w in zip(got, want))
+    if not (rel <= tol and all(bool(torch.isfinite(a).all()) for a in got)):
+        raise AssertionError(f"attention backward at {case['phase']}: rel "
+                             f"{rel} > {tol}")
+    del got, want
+    bwd_ms, _ = _time_ms(lambda: rt.flash_ref.attention_bwd(q, k, v, do,
+                                                            **kw), reps=5)
+    plain_bwd_ms, _ = _time_ms(plain_grad, reps=3)
+    pairs, _keys = _visible(sq, sk, case["window"], 0)
+    peak = BF16_OPS_PER_S if case["dtype"] == torch.bfloat16 else \
+        FP32_OPS_PER_S
+    elem = 2 if case["dtype"] == torch.bfloat16 else 4
+    bwd_bound, bwd_by = _bound(elem * (4 * b * sq * h * d
+                                       + 4 * b * sk * hkv * d),
+                               10 * b * h * pairs * d, peak)
+    print(f"attention backward (torch ops) at {row['shape']}: rel "
+          f"{rel:.3g} (tol {tol}) against autograd of plain; {bwd_ms:.4f} "
+          f"ms (autograd of plain {plain_bwd_ms:.4f} ms, bound "
+          f"{bwd_bound:.5f} ms by {bwd_by}) | {rt.card}", flush=True)
+    row.update(bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd_ms, bwd_rel=rel,
+               bwd_tol=tol, bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+    return row
+
+
+def _profile_train_step(rt, cfg, state, batch):
+    """One more train step of the standard run, timed, then again under
+    ``torch.profiler``: the card's busy time and idle share, and its
+    device time in K5 (by kernel name), in the attention backward and in
+    the optimizer (kernels launched inside ranges opened around them
+    here), in the other matmul kernels (by name) and in the rest."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                record_function)
+
+    ops = rt.flash_ops
+    real_bwd = ops.attention_bwd
+    _, opt = rt.steps.make_train_step(cfg, TRAIN_LR)
+
+    def bwd(*a, **kw):
+        with record_function("chip:attention_bwd"):
+            return real_bwd(*a, **kw)
+
+    def update(*a, **kw):
+        with record_function("chip:optimizer"):
+            return opt.update(*a, **kw)
+
+    plain_wall, _ = _seconds(lambda: _one_step(rt, cfg, state, batch,
+                                               opt.update))
+    ops.attention_bwd = bwd
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = _seconds(lambda: _one_step(rt, cfg, state, batch,
+                                                 update))
+    finally:
+        ops.attention_bwd = real_bwd
+    # the ranges opened here also show as device-side spans: not kernels
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == cuda and not e.name.startswith("chip:")]
+    ranged = _kernels_by_range(prof)
+    buckets = {
+        "k5": sum(us for n, us in kernels if K5_NAMES.search(n)),
+        "attention_bwd": sum(us for _n, r, us in ranged
+                             if "chip:attention_bwd" in r),
+        "optimizer": sum(us for _n, r, us in ranged
+                         if "chip:optimizer" in r),
+        "matmul_other": sum(us for n, us in kernels
+                            if MATMUL_NAMES.search(n))
+        - sum(us for n, r, us in ranged if "chip:attention_bwd" in r
+              and MATMUL_NAMES.search(n))}
+    buckets["other"] = sum(us for _n, us in kernels) - sum(buckets.values())
+    on_dev = [e for e in prof.key_averages() if e.device_type == cuda
+              and not e.key.startswith("chip:")]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_s": plain_wall, "profiled_wall_s": wall,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (1e3 * plain_wall),
+           "device_ms": {k: v / 1e3 for k, v in buckets.items()},
+           "kernels": sum(e.count for e in on_dev),
+           "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
+                              e.count] for e in top]}
+    print(f"profile, gemma2-2b train step B={TRAIN['batch']} S="
+          f"{TRAIN['seq']}: {json.dumps(out)} | {rt.card}", flush=True)
+    return out
+
+
+def _one_step(rt, cfg, state, batch, update):
+    loss, grads = rt.steps.value_and_grad(
+        lambda p: rt.lm.lm_loss(cfg, p, batch), state.params)
+    update(grads, state.opt, state.params, state.step)
+    return loss
+
+
+def _kernels_by_range(prof):
+    """(kernel name, names of the CPU ranges around its launch, device
+    us) of every kernel the profiler tied to a CPU event (an aten op's
+    kernels; a ctypes launch has none): each CPU event's kernels with the
+    names of that event and its parents."""
+    out = []
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None) or []
+        if not kernels:
+            continue
+        names, node = set(), evt
+        while node is not None:
+            names.add(node.name)
+            node = node.cpu_parent
+        for k in kernels:
+            out.append((k.name, names, k.duration))
+    return out
+
+
+def _drive_train(rt, dev, rows):
+    """Phase c: ``launch.train.main`` at gemma2-2b's full width and depth
+    in standard mode, counted; then one more step profiled."""
+    cfg = rt.get_config(TRAIN["arch"])
+    per_layer = {kind: sum(1 for i in range(cfg.n_layers)
+                           if (i % 2 == 0) == (kind == "local"))
+                 for kind in ("local", "global")}
+    torch.cuda.empty_cache()
+    rt.zero_counts()
+    log = rt.train.main(_train_args(
+        ["--mode", "standard", "--batch", str(TRAIN["batch"]), "--steps",
+         str(TRAIN["steps"]), "--lr", repr(TRAIN_LR), "--log-every", "1"]))
+    torch.cuda.synchronize()
+    per_step = 2 if cfg.remat and cfg.remat_policy != "none" else 1
+    _lm_counts(rt, rows, "train standard",
+               {f"train_{k}": n * per_step * TRAIN["steps"]
+                for k, n in per_layer.items()})
+    losses, norms = log.losses, log.grad_norms
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train standard: losses {losses}, grad norms "
+                             f"{norms}: not finite, or the loss did not "
+                             f"fall")
+    steady = statistics.mean(log.step_seconds[1:])
+    batch = next(rt.pipeline(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"],
+                             seed=1).batches(dev))._asdict()
+    profile = _profile_train_step(rt, cfg, log.state, batch)
+    k5_ms = sum(r["ms"] * r["launches"] for r in rows
+                if r["phase"].startswith("train_")) / TRAIN["steps"]
+    bwd_ms = sum(r["bwd_ms"] * n for r in rows for kind, n in
+                 per_layer.items() if r["phase"] == f"train_{kind}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "steps": TRAIN["steps"], "lr": TRAIN_LR,
+           "optimizer": cfg.optimizer, "remat": cfg.remat_policy,
+           "losses": losses, "grad_norms": norms,
+           "first_step_s": log.step_seconds[0], "s_per_step": steady,
+           "tokens_per_s": log.tokens_per_step / steady,
+           "peak_mem_gb": log.peak_bytes[0] / 1e9,
+           "k5_launches_per_step": per_step * cfg.n_layers,
+           "k5_ms_per_step": k5_ms, "attention_bwd_ms_per_step": bwd_ms,
+           "profile": profile, "card": rt.card}
+    print(f"gemma2-2b train (standard, full width and depth) B="
+          f"{TRAIN['batch']} S={TRAIN['seq']}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {steady:.3f} s/step ({out['tokens_per_s']:.0f}"
+          f" tok/s; first step {log.step_seconds[0]:.2f} s), peak "
+          f"{out['peak_mem_gb']:.2f} GB, K5 {k5_ms:.2f} ms a step | "
+          f"{rt.card}", flush=True)
+    del log
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_rank(job):
+    """One rank of phase d (spawned by ``gossip_sim.launch``): this node's
+    params drawn once on the card, then ``train_decentralized`` once per
+    sync spec from a copy of them, the counters set to 0 just before
+    each; returns on rank 0 every rank's log, counts and peak."""
+    import torch.distributed as dist
+    rt = _Port()
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = rt.mesh.make_host_mesh()
+    tree_map = torch.utils._pytree.tree_map
+    out, host = {}, None
+    for sync in DEC["syncs"]:
+        args = rt.train.parse_args(_train_args(job["argv"] + ["--sync",
+                                                               sync]))
+        cfg = rt.train.config_of(args)
+        if host is None:      # the node's draw, kept on the host
+            seed = rt.train.node_seed(args.seed, args.nodes,
+                                      mesh.index("data"))
+            host = tree_map(lambda x: x.cpu(), rt.lm.init_decoder_lm(
+                cfg, torch.Generator(device=dev).manual_seed(seed)))
+        init = tree_map(lambda x: x.to(dev), host)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rt.zero_counts()
+        log = rt.train.train_decentralized(cfg, args, mesh,
+                                           init_params=init)
+        torch.cuda.synchronize()
+        mine = {"log": dataclasses.replace(log, state=None),
+                "flash_by_shape": dict(rt.flash_ops.launches_by_shape),
+                "flash_by_variant": dict(rt.flash_ops.launches_by_variant),
+                "mix_launches": rt.mix_ops.launches}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[sync] = every
+        del init, log
+    return out
+
+
+def _drive_decentralized(rt, dev, rows):
+    """Phase d: ``train_decentralized`` at gemma2-2b's full width, depth
+    cut to DEC["layers"], DEC["nodes"] gloo ranks sharing the card, H =
+    2, once per sync spec; then ``sync_tree_sim`` over a stacked copy of
+    that parameter tree on the card (K1 in bf16, counted)."""
+    from repro_torch.launch import gossip_sim
+    cfg = dataclasses.replace(rt.get_config(TRAIN["arch"]),
+                              n_layers=DEC["layers"])
+    print(f"decentralized phase: {cfg.name} at full width, depth cut to "
+          f"{DEC['layers']} of 26 layers (widths and vocab kept), "
+          f"{DEC['nodes']} gloo ranks on one card", flush=True)
+    argv = ["--mode", "decentralized", "--layers", str(DEC["layers"]),
+            "--local-steps", str(DEC["local_steps"]), "--steps",
+            str(DEC["steps"]), "--batch", str(DEC["batch"]), "--nodes",
+            str(DEC["nodes"]), "--log-every", str(DEC["steps"] - 1),
+            "--dist-backend", "gloo"]
+    t0 = time.perf_counter()
+    runs = gossip_sim.launch(_train_rank, DEC["nodes"], "gloo",
+                             ({"argv": argv},), timeout_s=DEC_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    per_layer = {kind: sum(1 for i in range(cfg.n_layers)
+                           if (i % 2 == 0) == (kind == "local"))
+                 for kind in ("local", "global")}
+    per_step = DEC["local_steps"] * 2 + 1   # fwd + recompute, then the loss
+    by_key = {r["key"]: r for r in rows}
+    out = {}
+    for sync, ranks in runs.items():
+        spec = rt.dec.parse_sync(sync)
+        log = ranks[0]["log"]
+        for r, mine in enumerate(ranks):
+            if mine["mix_launches"]:
+                raise AssertionError(f"decentralized {sync}: rank {r} "
+                                     f"launched K1 (no intra-rank pair)")
+            got = {}
+            for key, n in mine["flash_by_shape"].items():
+                if key not in by_key:
+                    raise AssertionError(f"decentralized {sync}: K5 at "
+                                         f"{key}, a shape no row holds")
+                by_key[key]["launches"] += n
+                got[by_key[key]["phase"]] = n
+            want = {f"dec_{k}": n * per_step * DEC["steps"]
+                    for k, n in per_layer.items()}
+            if got != want or mine["flash_by_variant"] != {
+                    "wgmma": sum(want.values())}:
+                raise AssertionError(f"decentralized {sync}: rank {r} K5 "
+                                     f"launches {got}, want {want}")
+        spreads = [s for _t, s in log.spreads]
+        losses = log.losses
+        exact = rt.dec.is_exact(spec, (DEC["nodes"],))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and all(np.isfinite(spreads))
+                and (spreads[-1] == 0.0 if exact else spreads[-1] > 0.0)):
+            raise AssertionError(f"decentralized {sync}: losses {losses}, "
+                                 f"spreads {spreads}")
+        steady = statistics.mean(log.step_seconds[1:])
+        out[sync] = {
+            "losses": losses, "spreads": log.spreads,
+            "s_per_step": steady,
+            "tokens_per_s": log.tokens_per_step / steady,
+            "sync_s": statistics.mean(log.sync_seconds),
+            "sync_s_all": log.sync_seconds,
+            "sync_bytes_per_rank": log.sync_bytes,
+            "collective_bytes_per_sync": log.napkin_bytes,
+            "param_bytes": log.param_bytes,
+            "peak_mem_gb_per_rank": [p / 1e9 for p in log.peak_bytes]}
+        print(f"decentralized {sync}: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, spread {log.spreads}, {steady:.2f} s/step "
+              f"({out[sync]['tokens_per_s']:.0f} tok/s over "
+              f"{DEC['nodes']} nodes), sync {out[sync]['sync_s']:.3f} s "
+              f"({log.sync_bytes / 1e9:.3f} GB handed to torch.distributed "
+              f"a rank; collective_bytes_per_sync "
+              f"{log.napkin_bytes / 1e9:.3f} GB), peak "
+              f"{max(out[sync]['peak_mem_gb_per_rank']):.2f} GB a rank | "
+              f"{rt.card}", flush=True)
+    out["spawn_s"] = spawn_s
+    out["layers"], out["nodes"] = DEC["layers"], DEC["nodes"]
+    out["sim"] = _drive_sync_sim(rt, dev, cfg, rows)
+    out["card"] = rt.card
+    return out
+
+
+def _sim_tree(rt, cfg, dev):
+    """A stacked DEC["nodes"]-node copy of the parameter tree, each node
+    drawn on the card from its own generator."""
+    nodes = [rt.lm.init_decoder_lm(cfg, torch.Generator(
+        device=dev).manual_seed(500 + i)) for i in range(DEC["nodes"])]
+    stacked = torch.utils._pytree.tree_map(lambda *xs: torch.stack(xs),
+                                           *nodes)
+    del nodes
+    return stacked
+
+
+def _mix_bf16_rows(rt, dev, cfg):
+    """Every K1 shape ``sync_tree_sim`` launches over the stacked tree of
+    ``cfg`` (one leaf shape of each kind; DEC["nodes"] / 2 pairs a round),
+    and the one-bf16 path at [20, 5, 51] (a row of 255 elements)."""
+    one = rt.lm.init_decoder_lm(dataclasses.replace(cfg, n_layers=1),
+                                torch.Generator(device=dev).manual_seed(0))
+    shapes = sorted({(DEC["nodes"], *x.shape)
+                     for x in torch.utils._pytree.tree_leaves(one)})
+    del one
+    torch.cuda.empty_cache()
+    rows = [_hold_mix_bf16(rt, dev, s, DEC["nodes"] // 2, 40 + i)
+            for i, s in enumerate(shapes)]
+    _hold_mix_bf16(rt, dev, (20, 5, 51), 7, 39)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _drive_sync_sim(rt, dev, cfg, rows):
+    """``sync_tree_sim`` once on the card over a stacked copy of the
+    decentralized run's tree, exact hypercube: K1's launches by shape
+    equal leaves x rounds, and every node ends equal bit for bit."""
+    tree = _sim_tree(rt, cfg, dev)
+    leaves = torch.utils._pytree.tree_leaves(tree)
+    spec = rt.dec.parse_sync("gossip-hypercube")
+    (k,) = rt.dec.rounds_per_axis(spec, (DEC["nodes"],))
+    want = {}
+    for x in leaves:
+        key = (*x.shape, DEC["nodes"] // 2, "bf16")
+        want[key] = want.get(key, 0) + k
+    torch.cuda.synchronize()
+    rt.zero_counts()
+    secs, _ = _seconds(lambda: rt.dec.sync_tree_sim(tree, spec,
+                                                    DEC["nodes"]))
+    got = dict(rt.mix_ops.launches_by_shape)
+    if got != want or rt.mix_ops.launches != len(leaves) * k:
+        raise AssertionError(f"sync_tree_sim: K1 launches {got}, want "
+                             f"{want}")
+    by_key = {r["key"]: r for r in rows}
+    for key, n in got.items():
+        by_key[key]["launches"] += n
+    for x in leaves:
+        if not all(torch.equal(x[0], x[i]) for i in range(1, x.shape[0])):
+            raise AssertionError("sync_tree_sim: the nodes differ after an "
+                                 "exact hypercube")
+    nbytes = rt.dec.tree_bytes(tree)
+    del tree, leaves
+    torch.cuda.empty_cache()
+    out = {"spec": "gossip-hypercube", "rounds": k, "seconds": secs,
+           "launches": sum(got.values()),
+           "tree_bytes": nbytes}
+    print(f"sync_tree_sim (hypercube, {k} rounds) over a stacked "
+          f"{DEC['nodes']}-node copy ({nbytes / 1e9:.2f} GB bf16): "
+          f"{secs:.3f} s, {out['launches']} K1 launches at held shapes, "
+          f"nodes equal | {rt.card}", flush=True)
+    return out
+
+
+def _train_trajectory(rt, dev, rows):
+    """Phase e: the smoke variant of TRAJ["arch"] in float32, TRAJ["steps"]
+    AdamW and Adafactor steps on the card and on the CPU from the same
+    params (drawn on the CPU): losses rtol 1e-5, params within the CPU
+    tests' AdamW bound (every element within a tenth of the summed lr, at
+    most 1e-4 of a leaf's elements beyond 1e-6); K5 counted."""
+    smoke = rt.smoke(rt.get_config(TRAJ["arch"]))
+    out = {}
+    rt.zero_counts()
+    for kind in ("adamw", "adafactor"):
+        cfg = dataclasses.replace(smoke, optimizer=kind)
+        runs = {}
+        for where in ("cpu", "cuda"):
+            d = torch.device(where)
+            params = rt.lm.init_decoder_lm(
+                cfg, torch.Generator().manual_seed(0), device=d)
+            step, opt = rt.steps.make_train_step(cfg, TRAJ_LR)
+            state = rt.steps.TrainState(params, opt.init(params), 0)
+            losses = []
+            it = rt.pipeline(cfg.vocab_size, TRAJ["seq"], TRAJ["batch"],
+                             seed=0).batches(d)
+            for _ in range(TRAJ["steps"]):
+                state, m = step(state, next(it)._asdict())
+                losses.append(float(m["loss"]))
+            runs[where] = (losses, rt.convert.decoder_lm_to_numpy(
+                state.params))
+        (cl, cp), (gl, gp) = runs["cpu"], runs["cuda"]
+        loss_rel = float(np.max(np.abs(np.array(gl) - cl) / np.abs(cl)))
+        lr_sum = sum(float(rt.schedule("cosine", TRAJ_LR)(t))
+                     for t in range(TRAJ["steps"]))
+        worst, frac = 0.0, 0.0
+
+        def walk(a, b):
+            nonlocal worst, frac
+            if isinstance(a, dict):
+                for key in a:
+                    walk(a[key], b[key])
+                return
+            diff = np.abs(a - b)
+            worst = max(worst, float(diff.max()))
+            frac = max(frac, float((diff > 1e-6).mean()))
+        walk(gp, cp)
+        if not (loss_rel <= 1e-5 and worst < 0.1 * lr_sum and frac <= 1e-4):
+            raise AssertionError(f"trajectory {kind}: loss rel {loss_rel}, "
+                                 f"param max diff {worst} (bound "
+                                 f"{0.1 * lr_sum}), share beyond 1e-6 "
+                                 f"{frac}")
+        out[kind] = {"losses_cuda": gl, "losses_cpu": cl,
+                     "loss_rel": loss_rel, "param_max_diff": worst,
+                     "param_bound": 0.1 * lr_sum, "share_beyond_1e-6": frac}
+        print(f"trajectory {cfg.name} f32 {kind}, {TRAJ['steps']} steps: "
+              f"card vs CPU loss rel {loss_rel:.3g} (1e-5), params max "
+              f"{worst:.3g} (bound {0.1 * lr_sum:.3g}), share beyond 1e-6 "
+              f"{frac:.3g} (1e-4)", flush=True)
+    # two optimizers, one forward a step (the smoke variant has no remat)
+    per = 2 * smoke.n_layers * TRAJ["steps"]
+    _lm_counts(rt, rows, "trajectory", {"traj_f32": per})
+    return out
+
+
+def _drive_training(rt, dev):
+    """The training slice (6a, a-e): K1 in bf16 and K5 with its gradient
+    held at every
+    shape of the training path, then the standard run, the decentralized
+    runs with the K1 simulation, and the float32 trajectory. Returns the
+    numbers, with the held rows under "k1_rows" and "k5_rows"."""
+    t0 = time.perf_counter()
+    dec_cfg = dataclasses.replace(rt.get_config(TRAIN["arch"]),
+                                  n_layers=DEC["layers"])
+    k1_rows = _mix_bf16_rows(rt, dev, dec_cfg)
+    k5_rows = [_hold_train_attention(rt, dev, c, 200 + i)
+               for i, c in enumerate(_train_flash_cases(rt))]
+    torch.cuda.empty_cache()
+    out = {"standard": _drive_train(rt, dev, k5_rows)}
+    out["decentralized"] = _drive_decentralized(rt, dev, k5_rows + k1_rows)
+    out["trajectory"] = _train_trajectory(rt, dev, k5_rows)
+    out["seconds"] = time.perf_counter() - t0
+    out.update(card=rt.card, k1_rows=k1_rows, k5_rows=k5_rows)
+    return out
+
+
 def _kernel_line(name, route, source, replaces, rows, node_err):
     """One kernel's entry: totals, the most launched shape, every shape."""
     top = max(rows, key=lambda r: r["launches"])
@@ -2944,6 +3554,11 @@ def main() -> int:
     print(f"kernels built in {build_s:.1f}s: "
           f"{', '.join(rt.common.KERNEL_NAMES)}", flush=True)
     _time_add(rt, dev, *probe)
+
+    def lap(name):
+        print(f"[chip_smoke {time.perf_counter() - t_start:.1f} s] {name} "
+              f"done", flush=True)
+    lap("build")
     # phase 3: every kernel against its plain version, node shape first
     node_len = ("poisson", 2, NODE["l"])
     node_err = {
@@ -2979,6 +3594,7 @@ def main() -> int:
                         SERVE_ARGS + ["--rate", repr(rate), "--restore", ckpt],
                         cases, rows, trained=False)
     torch.cuda.empty_cache()
+    lap("serving")
 
     # phase 5: DELEDA, every launched shape held first, then the paths
     d_cases = _deleda_cases(rt)
@@ -2988,9 +3604,11 @@ def main() -> int:
     paper = _drive_paper(rt, dev, [r for r in d_rows
                                    if r["phase"].startswith("paper")])
     torch.cuda.empty_cache()
+    lap("DELEDA paper scale")
     # phase 5a: the scenario layer (slice 9): the sweep at paper scale
     s_rows, scen = _drive_scenarios(rt, dev)
     torch.cuda.empty_cache()
+    lap("scenario sweep")
     full_rows = [r for r in d_rows if r["phase"].startswith("full")]
     full_inputs = _full_width_inputs(rt, dev)
     full = _drive_full(rt, dev, full_rows, *full_inputs)
@@ -3002,7 +3620,9 @@ def main() -> int:
     profile = _profile_rounds(rt, dev)
     torch.cuda.empty_cache()
     # phase 5b: the lifecycle (slice 8): save, kill, resume, serve a node
+    lap("DELEDA full width")
     life = _drive_lifecycle(rt, dev, full_rows, cases, rows)
+    lap("lifecycle")
 
     # phase 6: the unique-token layout (slice 3), shapes held in each
     node_err["lda_sparse"] = _check_sparse_binary(rt, dev)
@@ -3011,6 +3631,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     b_rows, bench = _drive_sparse_bench(rt, dev)
     torch.cuda.empty_cache()
+    lap("unique layout")
 
     # phase 6a: the Scale layer (slice 10): vocab_shards in the simulation,
     # then run_mesh_deleda over NCCL and as a node x vocab grid over gloo
@@ -3020,15 +3641,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_rows, scale["mesh"] = _drive_mesh(rt, dev)
     torch.cuda.empty_cache()
+    lap("Scale layer")
 
     # phase 7: the LM slice, gemma2-2b, then gemma2-9b, served through K5
     lm_rows, lm = _drive_lm(rt, dev)
     torch.cuda.empty_cache()
+    lap("gemma2-2b serving")
     lm9_rows, lm["gemma2_9b"] = _drive_lm9(rt, dev)
     lm_rows += lm9_rows
     torch.cuda.empty_cache()
+    lap("gemma2-9b serving")
+
+    # phase 8 (the docstring's 6a): the training slice (PR 23), every new
+    # shape held first
+    training = _drive_training(rt, dev)
+    lm_rows += training.pop("k5_rows")
+    lap("training")
     all_rows = (rows + d_rows + s_rows + z_rows + b_rows + mesh_rows
-                + lm_rows)
+                + lm_rows + training.pop("k1_rows"))
     for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
@@ -3063,6 +3693,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": life}))
     print(json.dumps({"scenarios": scen}))
     print(json.dumps({"scale": scale}))
+    print(json.dumps({"training": training}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,15 @@ scalars), become the port's ``LDAState`` on a device, and back. A DELEDA
 uint32 ``[2]``, int32 scalars ``t``, ``stats_version`` and ``cursor``,
 ``member`` bool ``[n]``). The reference's decoder-LM parameters
 (``init_decoder_lm``'s pytree, layers stacked on axis 0) become the
-port's (a list of per-layer dicts). No JAX import: the caller hands over
-``np.asarray`` of each leaf.
+port's (a list of per-layer dicts), and back. The LM trainer's state
+(params, the optimizer's stacked state, step) travels as the reference's
+npz arrays: each key the ``/``-joined path of the reference's tree
+(``embed/table``, ``layers/attn/wq``; ``params/...``, ``opt/m/...`` and
+``step`` for a ``TrainState``), the layers stacked on axis 0, and a
+bfloat16 leaf stored as uint16 under its key plus ``.__bf16__``, as the
+reference's checkpoint writes it. No JAX import: the caller hands over
+``np.asarray`` of each leaf (a bfloat16 one as ``ml_dtypes.bfloat16``,
+which is imported only where such a leaf is asked for).
 """
 
 from __future__ import annotations
@@ -22,7 +29,11 @@ from repro_torch.core.lda import LDAState
 
 __all__ = ["lda_state_from_numpy", "lda_state_to_numpy",
            "train_state_to_numpy", "train_state_from_numpy",
-           "decoder_lm_from_numpy"]
+           "decoder_lm_from_numpy", "decoder_lm_to_numpy",
+           "lm_params_to_flat", "lm_params_from_flat",
+           "lm_train_state_to_numpy", "lm_train_state_from_numpy"]
+
+BF16_MARK = ".__bf16__"
 
 
 def lda_state_from_numpy(arrays: dict, device: str | torch.device = "cpu"
@@ -91,16 +102,145 @@ def decoder_lm_from_numpy(tree: dict, device: str | torch.device = "cpu"
     leaves; ``tree["layers"]`` holds each leaf of all layers stacked on
     axis 0 and becomes one dict per layer. Leaves keep their dtype.
     """
-    def leaf(x):
-        return torch.from_numpy(np.array(x)).to(device)
-
-    def nest(node, fn):
+    def nest(node):
         if isinstance(node, dict):
-            return {k: nest(v, fn) for k, v in node.items()}
-        return fn(node)
+            return {k: nest(v) for k, v in node.items()}
+        return _tensor(np.array(node), device)
 
-    out = {k: nest(v, leaf) for k, v in tree.items() if k != "layers"}
-    n_layers = len(tree["layers"]["ln1"]["scale"])
-    out["layers"] = [nest(tree["layers"], lambda x, i=i: leaf(x[i]))
-                     for i in range(n_layers)]
+    return _unstack_layers(nest(tree))
+
+
+def _tensor(x: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; ml_dtypes' bfloat16 (the
+    reference's numpy bf16) through its uint16 bits."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(x).to(device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` (bf16 as its uint16 bits)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+def _stack_layers(tree: dict) -> dict:
+    """Host copies of ``tree``'s leaves, its list of per-layer dicts
+    stacked into one dict of ``[L, ...]`` arrays; bf16 as uint16 bits,
+    with the set of their paths."""
+    from repro_torch.optim.optimizers import stacked_view
+
+    marks = set()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        leaf = node if isinstance(node, list) else [node]
+        if leaf[0].dtype == torch.bfloat16:
+            marks.add(path)
+        arrs = [_host(t) for t in leaf]
+        return np.stack(arrs) if isinstance(node, list) else arrs[0]
+
+    return walk(stacked_view(tree), ()), marks
+
+
+def decoder_lm_to_numpy(params: dict) -> dict:
+    """The port's dense decoder-LM params as the reference's pytree of
+    numpy arrays: every layer leaf stacked on axis 0, in its dtype (a
+    bfloat16 leaf as ``ml_dtypes.bfloat16``)."""
+    tree, marks = _stack_layers(params)
+    if marks:
+        import ml_dtypes
+
+        def as_bf16(node, path):
+            if isinstance(node, dict):
+                return {k: as_bf16(v, path + (k,)) for k, v in node.items()}
+            return node.view(ml_dtypes.bfloat16) if path in marks else node
+        tree = as_bf16(tree, ())
+    return tree
+
+
+def _flat(tree: dict, marks: set, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (k,)
+        if isinstance(v, dict):
+            out.update(_flat(v, marks, path))
+        else:
+            key = "/".join(map(str, path))
+            out[key + BF16_MARK if path in marks else key] = v
     return out
+
+
+def _nested(flat: dict, device) -> dict:
+    """Flat npz arrays back to a nested dict of tensors on ``device``."""
+    out: dict = {}
+    for key, arr in flat.items():
+        bf16 = key.endswith(BF16_MARK)
+        parts = key.removesuffix(BF16_MARK).split("/")
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        arr = np.asarray(arr)
+        t = torch.from_numpy(arr.view(np.int16) if bf16 else arr.copy())
+        node[parts[-1]] = (t.view(torch.bfloat16) if bf16 else t).to(device)
+    return out
+
+
+def _unstack_layers(tree: dict) -> dict:
+    """A stacked ``layers`` subtree as the port's list of per-layer dicts
+    (views of the stacked tensors)."""
+    def count(node):
+        return (count(next(iter(node.values()))) if isinstance(node, dict)
+                else node.shape[0])
+
+    def pick(node, i):
+        return ({k: pick(v, i) for k, v in node.items()}
+                if isinstance(node, dict) else node[i])
+
+    out = dict(tree)
+    out["layers"] = [pick(tree["layers"], i)
+                     for i in range(count(tree["layers"]))]
+    return out
+
+
+def lm_params_to_flat(params: dict) -> dict[str, np.ndarray]:
+    """The port's LM params as the npz arrays of the reference's
+    ``save_checkpoint(dir, params, step)``."""
+    tree, marks = _stack_layers(params)
+    return _flat(tree, marks)
+
+
+def lm_params_from_flat(flat: dict, device: str | torch.device = "cpu"
+                        ) -> dict:
+    """The reference's (or the port's) LM params checkpoint arrays as the
+    port's params on ``device``."""
+    return _unstack_layers(_nested(flat, device))
+
+
+def lm_train_state_to_numpy(state) -> dict[str, np.ndarray]:
+    """A port LM ``TrainState(params, opt, step)`` as the npz arrays of the
+    reference's ``TrainState``: ``params/...`` (layers stacked),
+    ``opt/...`` (already stacked) and ``step`` (int32)."""
+    params, pmarks = _stack_layers(state.params)
+    opt, omarks = _stack_layers(state.opt)
+    marks = ({("params",) + p for p in pmarks}
+             | {("opt",) + p for p in omarks})
+    flat = _flat({"params": params, "opt": opt}, marks)
+    flat["step"] = np.asarray(state.step, np.int32)
+    return flat
+
+
+def lm_train_state_from_numpy(arrays: dict,
+                              device: str | torch.device = "cpu"):
+    """The reference's LM ``TrainState`` npz arrays as the port's, on
+    ``device``: params with their per-layer list, the optimizer state
+    stacked, the step a host int."""
+    from repro_torch.launch.steps import TrainState
+
+    tree = _nested({k: v for k, v in arrays.items() if k != "step"}, device)
+    return TrainState(params=_unstack_layers(tree["params"]),
+                      opt=tree["opt"], step=int(arrays["step"]))

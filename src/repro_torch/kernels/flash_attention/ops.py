@@ -25,6 +25,13 @@ calls that launched the kernel and nothing else; ``launches_by_shape``
 counts them by ``(B, Sq, Sk, H, Hkv, D, dtype, "local" | "global",
 softcap)`` (``q_offset`` is not part of the key), ``launches_by_variant``
 by variant.
+
+Gradient. :func:`flash_attention` is a ``torch.autograd.Function``: its
+forward is the launch above (the plain version on the CPU), and its
+backward is ``ref.attention_bwd``, torch ops that recompute the float32
+scores, as the reference's autodiff through its einsums does (the JAX
+package has no backward kernel). Under ``torch.no_grad`` (serving) the
+same forward runs and nothing is kept.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+                                                     attention_ref)
 
 __all__ = ["flash_attention", "shape_key", "variant", "n_splits",
            "GLOBAL_WINDOW", "HEAD_DIMS", "VARIANTS", "launches",
@@ -163,6 +171,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    return _Attention.apply(q, k, v, bool(causal), window, softcap,
+                            float(scale), int(q_offset))
+
+
+def _forward(q, k, v, causal, window, softcap, scale, q_offset):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    b, sq, h, d = q.shape
     if q.device.type == "cpu":
         def bh(x):
             return x.transpose(1, 2).reshape(-1, x.shape[1], d)
@@ -171,5 +186,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             q_offset=q_offset)
         return out.reshape(b, h, sq, d).transpose(1, 2)
     window = GLOBAL_WINDOW if window is None else int(window)
-    return _launch(q, k, v, int(causal), window, softcap, float(scale),
-                   int(q_offset))
+    return _launch(q, k, v, int(causal), window, softcap, scale, q_offset)
+
+
+class _Attention(torch.autograd.Function):
+    """K5's forward; the float32 recomputing backward of ``ref.py``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale, q_offset=q_offset)
+        return _forward(q, k, v, causal, window, softcap, scale, q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, dout, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None

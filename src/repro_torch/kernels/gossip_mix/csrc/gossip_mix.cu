@@ -28,7 +28,20 @@
 // array; the wrapper splits a longer list over several launches. The
 // multiply is 0.5f * (a + b) with --fmad=false, the float operations of
 // the plain torch version 0.5 * (S + S[p]).
+//
+// bfloat16 (parameter trees of the decentralized LM trainer; the Pallas
+// body is generic over dtypes). Each thread loads 8 bf16 per 16-byte
+// vector, adds each pair in float32, takes 0.5f * (a + b) and rounds to
+// the nearest even bf16 once (__float2bfloat16_rn). For bf16 inputs that
+// equals the bf16 sum halved, the reference's 0.5 * (a + b) in bf16:
+// halving is exact, and the float32 sum of two bf16 values is exact
+// unless their exponents differ by more than 16, when the smaller one is
+// far below half a bf16 ulp of the larger and both roundings give the
+// larger. A row whose length is not a multiple of 8 elements, or whose
+// base is not 16-byte aligned, takes the kernel over single bf16 values.
+// Bytes bound the same way: 8 bytes moved per element pair.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,8 +65,29 @@ __device__ __forceinline__ float4 mix(float4 a, float4 b) {
                      mix(a.w, b.w));
 }
 
+__device__ __forceinline__ __nv_bfloat16 mix(__nv_bfloat16 a,
+                                             __nv_bfloat16 b) {
+  return __float2bfloat16_rn(mix(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// 8 bf16 values in one 16-byte vector.
+struct alignas(16) Bf16x8 {
+  __nv_bfloat162 h[4];
+};
+
+__device__ __forceinline__ Bf16x8 mix(Bf16x8 a, Bf16x8 b) {
+  Bf16x8 m;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 x = __bfloat1622float2(a.h[k]);
+    const float2 y = __bfloat1622float2(b.h[k]);
+    m.h[k] = __floats2bfloat162_rn(mix(x.x, y.x), mix(x.y, y.y));
+  }
+  return m;
+}
+
 template <typename T>
-__global__ void mix_pairs_kernel(float* __restrict__ stats,
+__global__ void mix_pairs_kernel(void* __restrict__ stats,
                                  long long row_vecs, const Pairs pairs) {
   const int q = blockIdx.y;
   T* a = reinterpret_cast<T*>(stats) + (long long)pairs.i[q] * row_vecs;
@@ -82,11 +116,14 @@ __global__ void mix_pairs_kernel(float* __restrict__ stats,
 
 }  // namespace
 
-// stats: device pointer to [n, row] float32, rows contiguous; pairs: HOST
-// pointer to n_pairs (i, j) int32 pairs, 1 <= n_pairs <= kMaxPairs, all
-// nodes distinct; vec4 != 0 when row % 4 == 0 and stats is 16-byte aligned.
-extern "C" int gossip_mix_pairs(float* stats, long long row,
-                                const int* pairs, int n_pairs, int vec4,
+// stats: device pointer to [n, row] float32 (bf16 == 0) or bfloat16
+// (bf16 != 0), rows contiguous; row counts elements; pairs: HOST pointer
+// to n_pairs (i, j) int32 pairs, 1 <= n_pairs <= kMaxPairs, all nodes
+// distinct; vec != 0 when a row is a whole number of 16-byte vectors
+// (row % 4 == 0 in float32, row % 8 == 0 in bf16) and stats is 16-byte
+// aligned.
+extern "C" int gossip_mix_pairs(void* stats, long long row, const int* pairs,
+                                int n_pairs, int vec, int bf16,
                                 void* stream) {
   if (n_pairs < 1 || n_pairs > kMaxPairs || row < 1)
     return (int)cudaErrorInvalidValue;
@@ -95,15 +132,20 @@ extern "C" int gossip_mix_pairs(float* stats, long long row,
     p.i[q] = pairs[2 * q];
     p.j[q] = pairs[2 * q + 1];
   }
-  const long long row_vecs = vec4 ? row / 4 : row;
+  const long long per_vec = vec ? (bf16 ? 8 : 4) : 1;
+  const long long row_vecs = row / per_vec;
   const long long per_block = (long long)kThreads * kVecPerThread;
   const dim3 grid((unsigned)((row_vecs + per_block - 1) / per_block),
                   (unsigned)n_pairs);
-  if (vec4)
-    mix_pairs_kernel<float4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        stats, row_vecs, p);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16 && vec)
+    mix_pairs_kernel<Bf16x8><<<grid, kThreads, 0, st>>>(stats, row_vecs, p);
+  else if (bf16)
+    mix_pairs_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(stats,
+                                                               row_vecs, p);
+  else if (vec)
+    mix_pairs_kernel<float4><<<grid, kThreads, 0, st>>>(stats, row_vecs, p);
   else
-    mix_pairs_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        stats, row_vecs, p);
+    mix_pairs_kernel<float><<<grid, kThreads, 0, st>>>(stats, row_vecs, p);
   return (int)cudaGetLastError();
 }

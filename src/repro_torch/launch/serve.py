@@ -21,6 +21,7 @@ the tokens and the measured times as a dict.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -85,6 +86,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain torch path)")
     args = ap.parse_args(argv)
@@ -93,8 +96,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = smoke_variant(cfg)
-    print(f"arch={cfg.name} family={cfg.family} params~{cfg.n_params():,} "
-          f"device={dev}")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    print(f"arch={cfg.name} family={cfg.family} layers={cfg.n_layers} "
+          f"params~{cfg.n_params():,} device={dev}")
     # weights and prompt from a CPU generator, moved to the device: the
     # same model and prompt for a seed on every device
     t0 = time.perf_counter()

@@ -7,16 +7,23 @@ sandwich norms, the tied unembedding, and the one-token cached step of
 serving. Parameters are plain dicts of tensors with the reference's
 names; the reference's layer stack (one array per leaf, layers on axis
 0, for ``lax.scan``) is a list of per-layer dicts here, run by a Python
-loop. Attention goes through the ``flash_attention`` kernel. The other
-families (moe, hybrid, ssm, vlm, encdec), ``lm_loss`` and training wait
-for later slices of the port.
+loop. Attention goes through the ``flash_attention`` kernel (whose
+gradient is a ``torch.autograd.Function``). ``lm_loss`` is the training
+objective; with gradients on, ``forward`` recomputes each layer in the
+backward as ``cfg.remat`` / ``cfg.remat_policy`` say (``_maybe_remat``,
+``torch.utils.checkpoint``). The other families (moe, hybrid, ssm, vlm,
+encdec) wait for later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import GLOBAL_WINDOW
@@ -24,7 +31,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 
 __all__ = ["GLOBAL_WINDOW", "ForwardOutput", "init_decoder_lm",
-           "embed_inputs", "forward", "init_caches", "decode_step"]
+           "embed_inputs", "forward", "init_caches", "decode_step",
+           "lm_loss", "DecoderLM"]
 
 
 class ForwardOutput(NamedTuple):
@@ -141,13 +149,45 @@ def _logits(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
     return L.softcap(logits, cfg.final_softcap)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" policy: keep the outputs of products without batch
+    dims (the reference's ``dots_with_no_batch_dims_saveable``: the
+    projections and the MLP), recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` recomputed in the backward: "full" recomputes everything,
+    "dots" keeps the matmul outputs, "none" (or ``remat=False``) keeps
+    everything. Without gradients it is ``fn`` itself."""
+    if (not cfg.remat or cfg.remat_policy == "none"
+            or not torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _save_matmuls)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx_fn)
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params: dict,
             tokens: torch.Tensor) -> ForwardOutput:
-    """Full-sequence forward (prefill). tokens [B, S], positions 0..S-1."""
+    """Full-sequence forward (training, prefill). tokens [B, S],
+    positions 0..S-1."""
     _require_dense(cfg)
     x = embed_inputs(cfg, params, tokens)
+
+    def body(x, p, w):
+        return _apply_dense_layer(cfg, p, x, 0, w)[0]
+
+    layer = _maybe_remat(cfg, body)
     for p, w in zip(params["layers"], _layer_windows(cfg)):
-        x, _ = _apply_dense_layer(cfg, p, x, 0, w)
+        x = layer(x, p, w)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return ForwardOutput(logits=_logits(cfg, params, x), caches=None,
                          aux_loss=aux)
@@ -176,3 +216,32 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return ForwardOutput(logits=_logits(cfg, params, x), caches=new_caches,
                          aux_loss=aux)
+
+
+# ----------------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross-entropy (+ the MoE aux term, 0 for the dense
+    family): float32 log-softmax, masked mean over ``batch["mask"]``."""
+    out = forward(cfg, params, batch["tokens"])
+    logp = torch.log_softmax(out.logits.float(), dim=-1)
+    ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    maskf = batch["mask"].float()
+    loss = -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+    return loss + aux_weight * out.aux_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderLM:
+    """Convenience holder used by examples."""
+
+    cfg: ModelConfig
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        return init_decoder_lm(self.cfg, gen, device)
+
+    def __call__(self, params, tokens, **kw):
+        return forward(self.cfg, params, tokens, **kw)

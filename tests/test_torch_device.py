@@ -184,6 +184,68 @@ def test_gossip_mix_matches_plain_on_card(cuda_device):
     assert torch.equal(got, mix_ref.mix_matching_ref(s, p))
 
 
+def test_gossip_mix_bf16_matches_plain_on_card(cuda_device):
+    """K1 in bfloat16: on the 8-a-vector path, on the one-value path (a
+    row of 255 elements) and on a base 2 bytes off 16-byte alignment,
+    exactly the plain version and the bf16 ``0.5 * (a + b)``; launches
+    counted under a key ending in "bf16"; float16 refused."""
+    from repro_torch.kernels.gossip_mix import ops as mix_ops
+    from repro_torch.kernels.gossip_mix import ref as mix_ref
+
+    rng = np.random.default_rng(1)
+    p = np.arange(9)
+    p[[0, 3, 5, 8]] = [3, 0, 8, 5]
+    plan = mix_ops.pairs_of(p)
+    flat = torch.from_numpy(rng.standard_normal(9 * 4 * 64 + 1).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    cases = [flat[:9 * 4 * 64].view(9, 4, 64),
+             flat[:9 * 5 * 51].view(9, 5, 51),
+             flat[1:].view(9, 4, 64)]            # 2 bytes off alignment
+    for s in cases:
+        want = mix_ref.mix_pairs_ref_(s.clone(), plan)
+        before = mix_ops.launches
+        got = mix_ops.mix_pairs_(s.clone(), plan)
+        torch.cuda.synchronize()
+        assert mix_ops.launches == before + 1
+        assert mix_ops.launches_by_shape[(*s.shape, 2, "bf16")] >= 1
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        i, j = torch.as_tensor(plan[:, 0]), torch.as_tensor(plan[:, 1])
+        assert torch.equal(got[i], 0.5 * (s[i] + s[j]))
+        assert torch.equal(got[j], got[i])
+    with pytest.raises(ValueError, match="bfloat16"):
+        mix_ops.mix_pairs_(cases[0].half(), plan)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two AdamW steps of the granite smoke variant in float32 on the card
+    and on the CPU from the same params: losses rtol 1e-5; the attention
+    forward is K5 (counted), its gradient the torch backward."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data.lm_pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config("granite_3_8b"))
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        params = tf.init_decoder_lm(cfg, torch.Generator().manual_seed(0),
+                                    device=dev)
+        step, opt = steps.make_train_step(cfg, 1e-2)
+        state = steps.TrainState(params, opt.init(params), 0)
+        it = TokenPipeline(cfg.vocab_size, 64, 2, seed=0).batches(dev)
+        before = flash_ops.launches
+        losses[str(dev)] = []
+        for _ in range(2):
+            state, m = step(state, next(it)._asdict())
+            losses[str(dev)].append(float(m["loss"]))
+        launched = flash_ops.launches - before
+        assert launched == (0 if dev == "cpu" else 2 * cfg.n_layers)
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=1e-5)
+
+
 def test_sparse_kernel_matches_plain_on_card(cuda_device):
     """K4 makes its plain version's draws (m equal) with counts in
     {0, 1, >1}, counts one launch by shape, and gives K2's bits on sorted
