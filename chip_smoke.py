@@ -179,6 +179,23 @@
    launches), and the float32 forward against teacher-forced decode at a
    [4, 64] prompt (rel < 2e-3); tok/s, prefill s, peak memory and the
    weight draw's seconds.
+6b. The other LM families, each at full width through
+   ``launch.serve.generate`` at B=4, prompt 128, 32 new tokens, its bf16
+   weights drawn on the card from a seeded CUDA generator (``FAM``,
+   ``FAMILY_RUNS``): kimi-k2 at 2 of 61 layers (the dense first layer
+   and one MoE layer: 384 experts, top-8, capacity dispatch, a shared
+   expert), arctic at 1 of 35 (a dense residual beside 128-expert
+   top-2), zamba2-2.7b whole (54 Mamba2 layers, 9 shared-attention
+   stages, head_dim 80), xlstm-125m whole, pixtral-12b at 10 of 40 (and
+   its forward with 256 image tokens), whisper-small whole (the encoder
+   at 1,500 stub frames, non-causal, and 12 cross-attention decodes a
+   step against it). K5 is held first at every new shape (non-causal,
+   D=80, GQA groups 7, 8, 4) with its bound and library call; each run
+   is counted by shape and by variant; tok/s, prefill s, peak memory,
+   the weights' draw s and K5's ms are printed. Then each family but
+   kimi (whose float32 weights do not fit) checks its float32 forward
+   against the same prompt teacher-forced through the cached step at
+   full width (rel < 2e-3; arctic with ragged dispatch).
 6a. The training slice (PR 23), gemma2-2b at full width:
    a. ``gossip_mix`` (K1) in bfloat16 held exactly against its plain
       version (and the bf16 ``0.5 * (a + b)``) at every [4, ...] leaf
@@ -218,9 +235,14 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, lifecycle, scenario, Scale and training numbers with the
-   card, and the script's seconds (each phase's end is printed as it
-   comes).
+   LM-serving, families, lifecycle, scenario, Scale and training
+   numbers with the card, and the script's seconds (each phase's end is
+   printed as it comes). K5's library yardstick (a compiled
+   ``flex_attention`` a held shape, about 8.5 s of compile each) is
+   compiled ahead by one spawned process at the lowest priority, from
+   the start and in the LM phases' order (``_warm_library``); a hold
+   reads its inductor and Triton caches, and compiles itself a shape the
+   process has not reached.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -345,6 +367,25 @@ LM9_ARGS = ["--arch", LM9["arch"], "--full", "--batch", str(LM9["batch"]),
             "--prompt-len", str(LM9["prompt"]), "--gen", str(LM9["gen"]),
             "--seed", str(LM9["seed"]), "--layers", str(LM9["layers"]),
             "--device", "cuda"]
+# the families slice: each family served at full width through
+# launch.serve.generate at B=4, prompt 128, 32 new tokens, its bf16
+# weights drawn on the card from a seeded CUDA generator; depth cut where
+# memory forces it (kimi 2 of 61 layers, the dense first one and one MoE
+# layer; arctic 1 of 35) or time (pixtral 10 of 40, as gemma2-9b); the
+# float32 forward against the teacher-forced step over the prompt (arctic
+# with ragged dispatch: a forward over B x S tokens drops tokens under
+# capacity where a one-token step does not; kimi's float32 weights, 75
+# GB, do not fit beside the card's other work and share arctic's code)
+FAM = dict(batch=4, prompt=128, gen=32, seed=0, f32_prompt=128)
+FAMILY_RUNS = (
+    dict(tag="kimi", arch="kimi_k2_1t_a32b", layers=2, f32=None),
+    dict(tag="arctic", arch="arctic_480b", layers=1,
+         f32=dict(moe_impl="ragged")),
+    dict(tag="zamba2", arch="zamba2_2p7b", layers=None, f32={}),
+    dict(tag="xlstm", arch="xlstm_125m", layers=None, f32={}),
+    dict(tag="pixtral", arch="pixtral_12b", layers=10, f32={}),
+    dict(tag="whisper", arch="whisper_small", layers=None, f32={}),
+)
 # the Scale layer: FULL's sync run with vocab_shards=4 (saved at round
 # 20, killed, resumed); run_mesh_deleda at FULL's width over NCCL (one
 # rank per card), and over gloo as a 2 x 2 node x vocab grid of ranks on
@@ -357,6 +398,11 @@ MESH_WARMUP = 2
 MESH_TIMEOUT_S = 300           # a spawned mesh phase that hangs fails
 MESH_TRAJ = dict(k=3, v=24, l=8, n=8, docs=4, batch=2, rounds=12, every=6)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+# K5's library yardstick is one compiled flex_attention a held shape
+# (8.5-15 s of the host's compile each, 42 calls): a spawned process at
+# the lowest priority compiles them in the LM phases' order from the
+# start, into the inductor and Triton caches that the holds then read;
+# nothing waits for it (a hold compiles a shape it has not reached yet)
 # K5's row check: the RMS over D of the error of one output row (batch,
 # query, head) over the RMS of that row of the plain version. A bf16 row
 # carries two roundings of its values (under 4e-3); a 512-key split or a
@@ -855,6 +901,7 @@ class _Port:
         from repro_torch.kernels.flash_attention import ops as flash_ops
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.launch import serve as lm_serve
+        from repro_torch.models import encdec, frontends
         from repro_torch.models import transformer as lm
         from repro_torch import convert
         from repro_torch.configs import smoke_variant
@@ -876,6 +923,7 @@ class _Port:
         # the LM slice's kernel, counted apart from the LDA paths' four
         self.flash_ops, self.flash_ref = flash_ops, flash_ref
         self.lm, self.lm_serve, self.get_config = lm, lm_serve, get_config
+        self.encdec, self.frontends = encdec, frontends   # the families
         self.flex = None      # compiled flex_attention, the K5 yardstick
         # the training slice
         self.train, self.steps, self.dec, self.mesh = (train, steps,
@@ -1970,15 +2018,15 @@ def _drive_full_scenario(rt, dev, full_rows, cfg_lda, corpus):
 # LM serving (the port's fourth slice): gemma2-2b through K5
 # --------------------------------------------------------------------------
 
-def _visible(sq, sk, window, q_offset):
+def _visible(sq, sk, window, q_offset, causal=True):
     """Visible (query, key) pairs of one head, and the keys some query
-    sees (the causal mask and the window, keys below Sk)."""
+    sees (the causal mask unless ``causal`` is false, and the window,
+    keys below Sk)."""
     rows = q_offset + np.arange(sq, dtype=np.int64)
     lo = np.maximum(0, rows - window + 1)
-    hi = np.minimum(sk - 1, rows)
+    hi = np.minimum(sk - 1, rows) if causal else np.full_like(rows, sk - 1)
     pairs = int(np.maximum(0, hi - lo + 1).sum())
-    keys = max(0, int(min(sk - 1, rows[-1]) - max(0, rows[0] - window + 1))
-               + 1)
+    keys = max(0, int(hi[-1] - max(0, rows[0] - window + 1)) + 1)
     return pairs, keys
 
 
@@ -1988,7 +2036,8 @@ def _flash_bound(case, q_offset):
     peak for bf16 inputs and the float32 peak for float32 ones."""
     b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h", "hkv",
                                                "d"))
-    pairs, keys = _visible(sq, sk, case["window"], q_offset)
+    pairs, keys = _visible(sq, sk, case["window"], q_offset,
+                           case.get("causal", True))
     elem = 2 if case["dtype"] == torch.bfloat16 else 4
     bytes_moved = elem * (2 * b * sq * h * d + 2 * b * keys * hkv * d)
     ops = 4 * b * h * pairs * d
@@ -1996,35 +2045,58 @@ def _flash_bound(case, q_offset):
     return _bound(bytes_moved, ops, peak), pairs
 
 
-def _library_attention(rt, q, k, v, case, q_offset):
+def _library_attention(rt, q, k, v, case, q_offset, grad=None):
     """One compiled ``flex_attention`` call of the same function (tanh
-    softcap ``score_mod``, causal + window ``mask_mod``), as a callable;
-    the offset and window ride in as tensors, so one compile serves every
-    offset of a shape."""
+    softcap ``score_mod`` where there is a softcap, causal + window
+    ``mask_mod``, or no mask for a non-causal global launch), as a
+    callable; the offset and window ride in as tensors, so one compile
+    serves every offset of a shape. Compiled for static shapes (one
+    specialised compile a shape: after a first shape, dynamo would
+    otherwise recompile with dynamic sizes, whose kernels ran up to 10x
+    slower at some float32 shapes). With ``grad`` (the output's
+    gradient) the call is its forward and backward."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     if rt.flex is None:
-        rt.flex = torch.compile(flex_attention)
+        # every held shape is compiled once; past dynamo's default
+        # recompile limit (8) a call would run flex_attention eagerly
+        for name in ("recompile_limit", "cache_size_limit"):
+            if hasattr(torch._dynamo.config, name):
+                setattr(torch._dynamo.config, name, 256)
+        rt.flex = torch.compile(flex_attention, dynamic=False)
     dev = q.device
     off = torch.tensor(q_offset, device=dev)
     win = torch.tensor(case["window"], device=dev)
     cap = case["softcap"]
+    causal = case.get("causal", True)
 
     def score_mod(score, b, h, qi, ki):
         return cap * torch.tanh(score / cap)
 
     def mask_mod(b, h, qi, ki):
-        return (qi + off >= ki) & (qi + off - ki < win)
+        if causal:
+            return (qi + off >= ki) & (qi + off - ki < win)
+        return qi + off - ki < win
 
-    mask = create_block_mask(mask_mod, None, None, case["sq"], case["sk"],
-                             device=dev)
+    mask = (create_block_mask(mask_mod, None, None, case["sq"], case["sk"],
+                              device=dev)
+            if causal or case["window"] < rt.flash_ops.GLOBAL_WINDOW
+            else None)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     scale = case["scale"]
+    kw = dict(score_mod=score_mod if cap else None, block_mask=mask,
+              scale=scale, enable_gqa=True)
 
-    def call():
-        return rt.flex(qh, kh, vh, score_mod=score_mod, block_mask=mask,
-                       scale=scale, enable_gqa=True).transpose(1, 2)
-    return call
+    if grad is None:
+        def call():
+            return rt.flex(qh, kh, vh, **kw).transpose(1, 2)
+        return call
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    gh = grad.transpose(1, 2).contiguous()
+
+    def call_grad():
+        return torch.autograd.grad(rt.flex(*leaves, **kw), leaves, gh)
+    return call_grad
 
 
 def _flash_cases(rt, lm=LM, prefix="", long=True):
@@ -2078,6 +2150,7 @@ def _row_err(got, want):
     return float((err / w.pow(2).mean(-1).sqrt().clamp_min(1e-6)).max())
 
 
+@torch.no_grad()
 def _hold_flash(rt, dev, case, seed):
     """K5 against its plain version at one shape and each held offset,
     with the times: the kernel, the plain version, the bound and the
@@ -2102,7 +2175,7 @@ def _hold_flash(rt, dev, case, seed):
     v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
         case["dtype"])
     kw = dict(window=case["window"], softcap=case["softcap"],
-              scale=case["scale"])
+              scale=case["scale"], causal=case.get("causal", True))
     flash, ref = rt.flash_ops.flash_attention, rt.flash_ref.attention_ref
 
     def heads(x):
@@ -2153,10 +2226,6 @@ def _hold_flash(rt, dev, case, seed):
     (bound, by), pairs = _flash_bound(case, mid)
     lib_ms, lib_err = None, None
     try:
-        if not case.get("library", True):
-            raise NotImplementedError("not measured here (a compile per "
-                                      "shape; this function's library "
-                                      "time is its 2b row's)")
         call = _library_attention(rt, q, k, v, case, mid)
         lib_ms, out = _time_ms(call, reps=5, warmup=2, device_only=True)
         lib_err = float((out.float() - plain(mid).float()).abs().max())
@@ -2166,7 +2235,8 @@ def _hold_flash(rt, dev, case, seed):
         library = f"none: {type(exc).__name__}: {str(exc)[:200]}"
     shape = (f"B={b} Sq={sq} Sk={sk} H={h}/{hkv} D={d} "
              f"{'bf16' if case['dtype'] == torch.bfloat16 else 'f32'} "
-             f"{case['kind']} softcap {case['softcap']}")
+             f"{case['kind']}{'' if kw['causal'] else ' non-causal'} "
+             f"softcap {case['softcap']}")
     print(f"flash_attention [{var}] vs plain at {shape}, q_offset "
           f"{list(case['offsets'])}: max_abs_err {err:.3g} (tol "
           f"{case['tol']}), row error {row_err:.3g} (limit {row_tol}"
@@ -2184,6 +2254,71 @@ def _hold_flash(rt, dev, case, seed):
                 library_max_abs_err=lib_err, max_abs_err=err,
                 tol=case["tol"], row_err=row_err, row_tol=row_tol,
                 control=control, control_row_err=ctl_err, launches=0)
+
+
+def _library_jobs(rt):
+    """Every library call a K5 hold compiles: (case, with its backward)
+    for each held shape of the LM, families and training phases."""
+    cases = (_flash_cases(rt) + _flash_cases(rt, LM9, prefix="9b_",
+                                             long=False)
+             + _family_flash_cases(rt) + _train_flash_cases(rt))
+    return ([(c, False) for c in cases]
+            + [(c, True) for c in cases if c["phase"].startswith("train_")])
+
+
+def _warm_library(jobs):
+    """The warming process: each job's compiled ``flex_attention`` call
+    (``_library_attention``, as its hold calls it) compiled and run once
+    on the card, its kernels left in the inductor and Triton caches. At
+    the lowest priority and one compile thread, so the phases it runs
+    beside keep the host's cores. A call that fails is left to its
+    hold."""
+    os.nice(19)
+    torch._inductor.config.compile_threads = 1
+    rt = _Port()
+    dev = torch.device("cuda")
+    for case, grad in jobs:
+        b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h",
+                                                   "hkv", "d"))
+        try:
+            q = torch.randn((b, sq, h, d), device=dev).to(case["dtype"])
+            k, v = (torch.randn((b, sk, hkv, d), device=dev).to(
+                case["dtype"]) for _ in range(2))
+            if grad:
+                _library_attention(rt, q, k, v, case, 0,
+                                   grad=torch.randn_like(q))()
+            else:
+                with torch.no_grad():
+                    mid = case["offsets"][len(case["offsets"]) // 2]
+                    _library_attention(rt, q, k, v, case, mid)()
+            torch.cuda.synchronize()
+        except Exception:             # the hold records the error
+            pass
+
+
+def _start_library_warmer(rt):
+    """The process of ``_warm_library`` over ``_library_jobs``; returns
+    (process, jobs)."""
+    import multiprocessing as mp
+    jobs = _library_jobs(rt)
+    proc = mp.get_context("spawn").Process(target=_warm_library,
+                                           args=(jobs,), daemon=True)
+    proc.start()
+    return proc, len(jobs)
+
+
+def _library_warmer_state(warmer, t_start, stop=False):
+    """Prints whether the warming process is still compiling; with
+    ``stop``, stops it if it is."""
+    proc, n = warmer
+    running = proc.is_alive()
+    if stop:
+        proc.terminate()
+        proc.join()
+    print(f"library yardstick: the {n} flex_attention compiles "
+          f"{'still running' if running else 'ended'} at "
+          f"{time.perf_counter() - t_start:.1f} s"
+          f"{' (stopped)' if stop and running else ''}", flush=True)
 
 
 def _lm_counts(rt, rows, where, want):
@@ -2435,10 +2570,7 @@ def _drive_lm9(rt, dev):
     cfg = dataclasses.replace(rt.get_config(LM9["arch"]),
                               n_layers=LM9["layers"])
     t0 = time.perf_counter()
-    # the served decode shapes get the compiled yardstick; the float32
-    # check's shapes (2b's function at other head counts) do not
-    rows = [_hold_flash(rt, dev, dict(c, library="f32" not in c["phase"]),
-                        130 + i) for i, c in
+    rows = [_hold_flash(rt, dev, c, 130 + i) for i, c in
             enumerate(_flash_cases(rt, LM9, prefix="9b_", long=False))]
     hold_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
     torch.cuda.synchronize()
@@ -2513,6 +2645,240 @@ def _drive_lm9(rt, dev):
           f"[{b}, {s0}] rel {rel:.3g}; K5 holds {hold_s:.1f} s, f32 check "
           f"{f32_s:.1f} s | {rt.card}", flush=True)
     return rows, lm9
+
+
+# --------------------------------------------------------------------------
+# The LM families: MoE, hybrid Mamba2, xLSTM, VLM, encoder-decoder
+# --------------------------------------------------------------------------
+
+def _family_cfg(rt, run, **updates):
+    """The run's config at full width, its depth cut to ``run["layers"]``
+    (an encoder-decoder keeps both stacks)."""
+    cfg = rt.get_config(run["arch"])
+    if run["layers"]:
+        updates["n_layers"] = run["layers"]
+    return dataclasses.replace(cfg, **updates)
+
+
+def _attention_layers(cfg):
+    """K5 launches of one decode step (and of one forward): a layer each
+    for dense, vlm and moe, a stage each for hybrid, none for ssm; an
+    encoder-decoder's decoder layer launches two (self, cross)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers
+
+
+def _family_flash_cases(rt):
+    """Every K5 shape the families phase launches: each family's served
+    decode (bf16, B=4, S_max=160), its float32 check's forward and decode
+    (S=128), pixtral's bf16 forward with its 256 image tokens, and
+    whisper's non-causal launches: the encoder at 1,500 frames and the
+    cross decode against them, in bf16 and in the float32 check (with its
+    cross forward)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, s_max, sf = FAM["batch"], FAM["prompt"] + FAM["gen"], FAM["f32_prompt"]
+    cases = []
+    for run in FAMILY_RUNS:
+        cfg, tag = rt.get_config(run["arch"]), run["tag"]
+        if cfg.family == "ssm":
+            continue
+        base = dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
+                    softcap=cfg.attn_softcap,
+                    scale=cfg.query_scale or cfg.hd ** -0.5,
+                    window=rt.flash_ops.GLOBAL_WINDOW, kind="global", b=b)
+        group = cfg.n_heads // cfg.n_kv
+        cases.append(dict(base, phase=f"{tag}_decode", sq=1, sk=s_max,
+                          dtype=bf16, tol=3e-2, variant="decode",
+                          offsets=(0, s_max // 2 - 1, s_max - 2)))
+        cases += [
+            dict(base, phase=f"{tag}_f32_forward", sq=sf, sk=sf, dtype=f32,
+                 tol=2e-5, variant=rt.flash_ops.variant(f32, sf, cfg.hd,
+                                                        group),
+                 offsets=(0,), control="bf16"),
+            dict(base, phase=f"{tag}_f32_decode", sq=1, sk=sf, dtype=f32,
+                 tol=2e-5, variant="decode", control="bf16",
+                 offsets=(0, sf // 2 - 1, sf - 1))] \
+            if run["f32"] is not None else []
+        if cfg.family == "vlm":
+            n = cfg.n_image_tokens + FAM["prompt"]
+            cases.append(dict(base, phase=f"{tag}_image_forward", sq=n, sk=n,
+                              dtype=bf16, tol=3e-2, variant="wgmma",
+                              offsets=(0,), control="tile"))
+        if cfg.family == "encdec":
+            t, nc = cfg.max_source_len, dict(base, causal=False)
+            cases += [
+                dict(nc, phase=f"{tag}_encoder", sq=t, sk=t, dtype=bf16,
+                     tol=3e-2, variant="wgmma", offsets=(0,)),
+                dict(nc, phase=f"{tag}_cross_decode", sq=1, sk=t,
+                     dtype=bf16, tol=3e-2, variant="decode", offsets=(0,)),
+                dict(nc, phase=f"{tag}_f32_encoder", sq=t, sk=t, dtype=f32,
+                     tol=2e-5, variant="fma", offsets=(0,), control="bf16"),
+                dict(nc, phase=f"{tag}_f32_cross_forward", sq=sf, sk=t,
+                     dtype=f32, tol=2e-5, variant="fma", offsets=(0,),
+                     control="bf16"),
+                dict(nc, phase=f"{tag}_f32_cross_decode", sq=1, sk=t,
+                     dtype=f32, tol=2e-5, variant="decode", offsets=(0,),
+                     control="bf16")]
+    return cases
+
+
+def _family_params(rt, cfg, seed, dev):
+    """Weights drawn on the card from a seeded CUDA generator (not the
+    CPU draw of the same seed), timed with the card drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = (rt.encdec.init_encdec(cfg, g) if cfg.family == "encdec"
+              else rt.lm.init_decoder_lm(cfg, g))
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+
+
+def _k5_ms(rows, want):
+    """K5's held ms times the launches ``want`` names, summed."""
+    by_phase = {r["phase"]: r["ms"] for r in rows}
+    return sum(by_phase[ph] * n for ph, n in want.items())
+
+
+def _family_f32_check(rt, dev, run, cfg, prompt, frames, rows):
+    """The float32 forward (``forward_encdec`` for whisper) against the
+    same prompt teacher-forced through the cached step, at full width
+    (rel max error of the logits < 2e-3,
+    ``tests/test_decode_consistency.py``'s bound), K5 counted."""
+    tag, sf = run["tag"], FAM["f32_prompt"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **run["f32"])
+    params, _ = _family_params(rt, cfg32, FAM["seed"] + 1, dev)
+    b, toks = prompt.shape[0], prompt[:, :sf]
+    n = _attention_layers(cfg32)
+    t0 = time.perf_counter()
+    rt.zero_counts()
+    if cfg32.family == "encdec":
+        fr = frames.float()
+        full = rt.encdec.forward_encdec(cfg32, params, toks, fr).logits
+        caches = rt.encdec.init_encdec_caches(cfg32, params, fr, b, sf)
+        step = rt.encdec.decode_step_encdec
+        want = {f"{tag}_f32_encoder": 2 * cfg32.n_encoder_layers,
+                f"{tag}_f32_forward": n, f"{tag}_f32_cross_forward": n,
+                f"{tag}_f32_decode": n * sf,
+                f"{tag}_f32_cross_decode": n * sf}
+    else:
+        full = rt.lm.forward(cfg32, params, toks).logits
+        caches = rt.lm.init_caches(cfg32, b, sf, dev)
+        step = rt.lm.decode_step
+        want = ({f"{tag}_f32_forward": n, f"{tag}_f32_decode": n * sf}
+                if n else {})
+    dec = torch.empty_like(full)
+    for t in range(sf):
+        out = step(cfg32, params, toks[:, t:t + 1], caches, t)
+        caches = out.caches
+        dec[:, t] = out.logits[:, 0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    _lm_counts(rt, rows, f"{tag} f32 consistency", want)
+    rel = float((dec - full).abs().max() / (full.abs().max() + 1e-9))
+    if not (rel < 2e-3 and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"{cfg.name} f32 decode vs forward at full "
+                             f"width: rel {rel} (limit 2e-3)")
+    print(f"{cfg.name} ({cfg32.n_layers} layers"
+          f"{', ' + cfg32.moe_impl if cfg32.family == 'moe' else ''}) f32 "
+          f"forward vs teacher-forced step [{b}, {sf}]: rel max err "
+          f"{rel:.3g} (limit 2e-3), {secs:.2f} s | {rt.card}", flush=True)
+    del params, caches, full, dec, out
+    torch.cuda.empty_cache()
+    return rel, secs
+
+
+@torch.no_grad()
+def _drive_family(rt, dev, run, rows):
+    """One family: its weights drawn on the card, ``launch.serve.generate``
+    at B=4, prompt 128, 32 new tokens (counted: K5's launches by shape and
+    variant; whisper's encoder and cross caches built first, from 1,500
+    stub frames), pixtral's forward with image embeddings (counted), then
+    the float32 check. Returns the family's numbers."""
+    cfg, tag = _family_cfg(rt, run), run["tag"]
+    b, s0, gen = FAM["batch"], FAM["prompt"], FAM["gen"]
+    steps = s0 + gen - 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, draw_s = _family_params(rt, cfg, FAM["seed"], dev)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    cpu = torch.Generator().manual_seed(FAM["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (b, s0), generator=cpu).to(dev)
+    frames = (rt.frontends.audio_frames_stub(cfg, cpu, b, device=dev)
+              if cfg.family == "encdec" else None)
+    n = _attention_layers(cfg)
+    rt.zero_counts()
+    tokens, stats = rt.lm_serve.generate(cfg, params, prompt, gen,
+                                         frames=frames)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want = {f"{tag}_decode": n * steps} if n else {}
+    if cfg.family == "encdec":
+        want.update({f"{tag}_cross_decode": n * steps,
+                     f"{tag}_encoder": cfg.n_encoder_layers})
+    _lm_counts(rt, rows, f"{tag} serving", want)
+    if (tuple(tokens.shape) != (b, s0 + gen) or int(tokens.min()) < 0
+            or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"{cfg.name}: served tokens out of shape or "
+                             f"vocabulary")
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "weights_gb": weights_gb,
+           "weight_draw_s": draw_s, "batch": b, "prompt_len": s0,
+           "gen": gen, "decode_steps": steps,
+           "caches_s": stats["caches_sec"],
+           "prefill_s": stats["prefill_sec"], "decode_s": stats["decode_sec"],
+           "decode_tok_per_s": stats["decode_tok_per_sec"],
+           "serve_peak_mem_gb": peak / 1e9,
+           "k5_launches_per_step": (2 if cfg.family == "encdec" else 1) * n,
+           "k5_ms_in_serving": _k5_ms(rows, want)}
+    if cfg.family == "vlm":
+        images = rt.frontends.image_patches_stub(cfg, cpu, b, device=dev)
+        rt.zero_counts()
+        secs, fwd = _seconds(lambda: rt.lm.forward(cfg, params, prompt,
+                                                   image_embeds=images))
+        _lm_counts(rt, rows, f"{tag} forward with images",
+                   {f"{tag}_image_forward": n})
+        want_shape = (b, cfg.n_image_tokens + s0, cfg.vocab_size)
+        if (tuple(fwd.logits.shape) != want_shape
+                or not bool(torch.isfinite(fwd.logits).all())):
+            raise AssertionError(f"{cfg.name}: forward with images "
+                                 f"misshapen or not finite")
+        out["image_forward_s"] = secs
+        del fwd, images
+    del params
+    torch.cuda.empty_cache()
+    if run["f32"] is not None:
+        out["f32_decode_vs_forward_rel"], out["f32_check_s"] = \
+            _family_f32_check(rt, dev, run, cfg, prompt, frames, rows)
+    out["card"] = rt.card
+    print(f"{cfg.name} ({cfg.n_layers} layers, {cfg.n_params() / 1e9:.2f} B"
+          f" params, {weights_gb:.1f} GB) serving B={b} prompt {s0} gen "
+          f"{gen}: weights drawn on the card in {draw_s:.2f} s, caches "
+          f"{out['caches_s']:.3f} s, prefill {out['prefill_s']:.3f} s, "
+          f"decode {out['decode_s']:.3f} s = {out['decode_tok_per_s']:.1f} "
+          f"tok/s, peak {out['serve_peak_mem_gb']:.2f} GB, K5 "
+          f"{out['k5_ms_in_serving']:.2f} ms of it | {rt.card}", flush=True)
+    return out
+
+
+def _drive_families(rt, dev, lap):
+    """The families phase: K5 held at every shape first (non-causal and
+    D=80 among them), then each family in ``FAMILY_RUNS``. Returns (rows,
+    the ``families`` numbers)."""
+    t0 = time.perf_counter()
+    rows = [_hold_flash(rt, dev, c, 400 + i)
+            for i, c in enumerate(_family_flash_cases(rt))]
+    hold_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    torch.cuda.empty_cache()
+    lap("families K5 holds")
+    out = {"k5_holds_s": hold_s}
+    for run in FAMILY_RUNS:
+        out[run["tag"]] = _drive_family(rt, dev, run, rows)
+        lap(f"{run['tag']} serving")
+    return rows, out
 
 
 def _drive_scale_sim(rt, dev, full_rows, cfg_lda, corpus):
@@ -2982,8 +3348,7 @@ def _train_flash_cases(rt):
         for kind, window in (("local", cfg.window),
                              ("global", rt.flash_ops.GLOBAL_WINDOW)):
             cases.append(dict(base, b=b, window=window, kind=kind,
-                              phase=f"{tag}_{kind}",
-                              library=tag == "train"))
+                              phase=f"{tag}_{kind}"))
     smoke = rt.smoke(rt.get_config(TRAJ["arch"]))
     cases.append(dict(phase="traj_f32", b=TRAJ["batch"], sq=TRAJ["seq"],
                       sk=TRAJ["seq"], h=smoke.n_heads, hkv=smoke.n_kv,
@@ -2991,7 +3356,7 @@ def _train_flash_cases(rt):
                       scale=smoke.query_scale or smoke.hd ** -0.5,
                       window=rt.flash_ops.GLOBAL_WINDOW, kind="global",
                       dtype=torch.float32, tol=2e-5, variant="fma",
-                      offsets=(0,), control="bf16", library=False))
+                      offsets=(0,), control="bf16"))
     return cases
 
 
@@ -3045,12 +3410,26 @@ def _hold_train_attention(rt, dev, case, seed):
     bwd_bound, bwd_by = _bound(elem * (4 * b * sq * h * d
                                        + 4 * b * sk * hkv * d),
                                10 * b * h * pairs * d, peak)
+    # the library's forward and backward together (a compiled
+    # flex_attention and its compiled backward), at the standard run's
+    # shapes: the yardstick of K5's forward plus this backward
+    lib_fb_ms, lib_fb = None, "not measured (the standard run's shapes)"
+    if case["phase"].startswith("train_"):
+        try:
+            call = _library_attention(rt, q, k, v, case, 0, grad=do)
+            lib_fb_ms, _ = _time_ms(call, reps=5, warmup=2)
+            lib_fb = f"{lib_fb_ms:.4f} ms"
+        except Exception as exc:      # recorded, not fatal: a yardstick
+            lib_fb = f"none: {type(exc).__name__}: {str(exc)[:200]}"
     print(f"attention backward (torch ops) at {row['shape']}: rel "
           f"{rel:.3g} (tol {tol}) against autograd of plain; {bwd_ms:.4f} "
           f"ms (autograd of plain {plain_bwd_ms:.4f} ms, bound "
-          f"{bwd_bound:.5f} ms by {bwd_by}) | {rt.card}", flush=True)
+          f"{bwd_bound:.5f} ms by {bwd_by}); library forward+backward "
+          f"{lib_fb} beside K5 + this backward "
+          f"{row['ms'] + bwd_ms:.4f} ms | {rt.card}", flush=True)
     row.update(bwd_ms=bwd_ms, bwd_plain_ms=plain_bwd_ms, bwd_rel=rel,
-               bwd_tol=tol, bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+               bwd_tol=tol, bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+               library_fwd_bwd_ms=lib_fb_ms, library_fwd_bwd=lib_fb)
     return row
 
 
@@ -3545,6 +3924,7 @@ def main() -> int:
           f"{_smi('clocks.sm,clocks.max.sm')}", flush=True)
 
     t0 = time.perf_counter()
+    warmer = _start_library_warmer(rt)
     probe = _start_add_chain(rt)
     logs = rt.common.build_all()
     build_s = time.perf_counter() - t0
@@ -3644,6 +4024,7 @@ def main() -> int:
     lap("Scale layer")
 
     # phase 7: the LM slice, gemma2-2b, then gemma2-9b, served through K5
+    _library_warmer_state(warmer, t_start)
     lm_rows, lm = _drive_lm(rt, dev)
     torch.cuda.empty_cache()
     lap("gemma2-2b serving")
@@ -3651,12 +4032,17 @@ def main() -> int:
     lm_rows += lm9_rows
     torch.cuda.empty_cache()
     lap("gemma2-9b serving")
+    # phase 7a: the other families, every new K5 shape held first
+    fam_rows, families = _drive_families(rt, dev, lap)
+    lm_rows += fam_rows
+    torch.cuda.empty_cache()
 
     # phase 8 (the docstring's 6a): the training slice (PR 23), every new
     # shape held first
     training = _drive_training(rt, dev)
     lm_rows += training.pop("k5_rows")
     lap("training")
+    _library_warmer_state(warmer, t_start, stop=True)
     all_rows = (rows + d_rows + s_rows + z_rows + b_rows + mesh_rows
                 + lm_rows + training.pop("k1_rows"))
     for row in all_rows:
@@ -3690,6 +4076,7 @@ def main() -> int:
                                         "sparse_bench": bench,
                                         "card": card}}))
     print(json.dumps({"lm_serving": lm}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"lifecycle": life}))
     print(json.dumps({"scenarios": scen}))
     print(json.dumps({"scale": scale}))

@@ -1,4 +1,4 @@
-"""Model configurations of the LM scaffold: the dense archs ported so far."""
+"""Model configurations of the LM scaffold: the reference's ten archs."""
 
 from repro_torch.configs.base import (ModelConfig, get_config, list_archs,
                                       smoke_variant)

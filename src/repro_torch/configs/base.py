@@ -2,10 +2,12 @@
 
 The port's copy of the JAX package's ``configs/base.py``: the dataclass
 and its analytic ``n_params`` whole, with ``torch_dtype`` in place of
-``jnp_dtype``. Only the dense archs whose serving path is ported are
-listed: each ``configs/<arch>.py`` holds the published numbers and cites
-its source. ``smoke_variant`` shrinks a config to a 2-layer,
-d_model<=256 float32 version for CPU tests.
+``jnp_dtype``, and the reference's ten archs: each ``configs/<arch>.py``
+holds the published numbers and cites its source (``lda_paper.py`` is
+the paper's own DELEDA setup, not an arch). ``smoke_variant`` shrinks a
+config to a 2-layer, d_model<=256 float32 version for CPU tests, with
+the reference's per-family updates. The dry run's ``INPUT_SHAPES`` wait
+with the dry run.
 """
 
 from __future__ import annotations
@@ -142,13 +144,23 @@ class ModelConfig:
         return int(full - all_experts + active)
 
 
-ARCH_IDS = ["gemma2_2b", "gemma2_9b", "granite_3_8b", "qwen2_72b"]
+ARCH_IDS = [
+    "kimi_k2_1t_a32b", "arctic_480b", "whisper_small", "gemma2_2b",
+    "gemma2_9b", "granite_3_8b", "pixtral_12b", "zamba2_2p7b", "qwen2_72b",
+    "xlstm_125m",
+]
 
 _ALIASES = {
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "arctic-480b": "arctic_480b",
+    "whisper-small": "whisper_small",
     "gemma2-2b": "gemma2_2b",
     "gemma2-9b": "gemma2_9b",
     "granite-3-8b": "granite_3_8b",
+    "pixtral-12b": "pixtral_12b",
+    "zamba2-2.7b": "zamba2_2p7b",
     "qwen2-72b": "qwen2_72b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 
@@ -159,7 +171,7 @@ def list_archs() -> list[str]:
 def get_config(arch: str) -> ModelConfig:
     mod_name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
     if mod_name not in ARCH_IDS:
-        raise ValueError(f"arch {arch!r} is not ported; ported: {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch!r}; archs: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

@@ -7,16 +7,20 @@ scalars), become the port's ``LDAState`` on a device, and back. A DELEDA
 ``[n, K, V]`` or ``[n, K, S, V/S]``, ``steps`` int32 ``[n]``, ``key``
 uint32 ``[2]``, int32 scalars ``t``, ``stats_version`` and ``cursor``,
 ``member`` bool ``[n]``). The reference's decoder-LM parameters
-(``init_decoder_lm``'s pytree, layers stacked on axis 0) become the
-port's (a list of per-layer dicts), and back. The LM trainer's state
-(params, the optimizer's stacked state, step) travels as the reference's
-npz arrays: each key the ``/``-joined path of the reference's tree
-(``embed/table``, ``layers/attn/wq``; ``params/...``, ``opt/m/...`` and
-``step`` for a ``TrainState``), the layers stacked on axis 0, and a
-bfloat16 leaf stored as uint16 under its key plus ``.__bf16__``, as the
-reference's checkpoint writes it. No JAX import: the caller hands over
-``np.asarray`` of each leaf (a bfloat16 one as ``ml_dtypes.bfloat16``,
-which is imported only where such a leaf is asked for).
+of every decoder family (``init_decoder_lm``'s pytree: ``layers`` and
+kimi's ``dense_layers`` stacked on axis 0, zamba2's ``shared_attn``
+unstacked, ``router`` float32) and of the encoder-decoder
+(``init_encdec``'s: ``encoder`` and ``decoder`` stacked) become the
+port's (a list of per-layer dicts for each stack), and back. The LM
+trainer's state (params, the optimizer's stacked state, step) travels
+as the reference's npz arrays: each key the ``/``-joined path of the
+reference's tree (``embed/table``, ``layers/attn/wq``; ``params/...``,
+``opt/m/...`` and ``step`` for a ``TrainState``), the layers stacked on
+axis 0, and a bfloat16 leaf stored as uint16 under its key plus
+``.__bf16__``, as the reference's checkpoint writes it. No JAX import:
+the caller hands over ``np.asarray`` of each leaf (a bfloat16 one as
+``ml_dtypes.bfloat16``, which is imported only where such a leaf is
+asked for).
 """
 
 from __future__ import annotations
@@ -30,10 +34,13 @@ from repro_torch.core.lda import LDAState
 __all__ = ["lda_state_from_numpy", "lda_state_to_numpy",
            "train_state_to_numpy", "train_state_from_numpy",
            "decoder_lm_from_numpy", "decoder_lm_to_numpy",
+           "encdec_from_numpy", "encdec_to_numpy",
            "lm_params_to_flat", "lm_params_from_flat",
            "lm_train_state_to_numpy", "lm_train_state_from_numpy"]
 
 BF16_MARK = ".__bf16__"
+# the reference's layer stacks (one array a leaf, layers on axis 0)
+STACKS = ("layers", "dense_layers", "encoder", "decoder")
 
 
 def lda_state_from_numpy(arrays: dict, device: str | torch.device = "cpu"
@@ -96,11 +103,12 @@ def train_state_from_numpy(arrays: dict,
 
 def decoder_lm_from_numpy(tree: dict, device: str | torch.device = "cpu"
                           ) -> dict:
-    """The reference's dense decoder-LM params as the port's.
+    """The reference's decoder-LM params (any family) as the port's.
 
     ``tree`` is the reference's ``init_decoder_lm`` pytree with numpy
-    leaves; ``tree["layers"]`` holds each leaf of all layers stacked on
-    axis 0 and becomes one dict per layer. Leaves keep their dtype.
+    leaves; each of its stacks (``layers``, ``dense_layers``) holds each
+    leaf of all its layers on axis 0 and becomes one dict per layer.
+    Leaves keep their dtype.
     """
     def nest(node):
         if isinstance(node, dict):
@@ -148,9 +156,9 @@ def _stack_layers(tree: dict) -> dict:
 
 
 def decoder_lm_to_numpy(params: dict) -> dict:
-    """The port's dense decoder-LM params as the reference's pytree of
-    numpy arrays: every layer leaf stacked on axis 0, in its dtype (a
-    bfloat16 leaf as ``ml_dtypes.bfloat16``)."""
+    """The port's decoder-LM params (any family) as the reference's
+    pytree of numpy arrays: every stack's leaves stacked on axis 0, in
+    their dtype (a bfloat16 leaf as ``ml_dtypes.bfloat16``)."""
     tree, marks = _stack_layers(params)
     if marks:
         import ml_dtypes
@@ -191,8 +199,8 @@ def _nested(flat: dict, device) -> dict:
 
 
 def _unstack_layers(tree: dict) -> dict:
-    """A stacked ``layers`` subtree as the port's list of per-layer dicts
-    (views of the stacked tensors)."""
+    """Each stacked subtree of ``STACKS`` as the port's list of per-layer
+    dicts (views of the stacked tensors)."""
     def count(node):
         return (count(next(iter(node.values()))) if isinstance(node, dict)
                 else node.shape[0])
@@ -202,9 +210,25 @@ def _unstack_layers(tree: dict) -> dict:
                 if isinstance(node, dict) else node[i])
 
     out = dict(tree)
-    out["layers"] = [pick(tree["layers"], i)
-                     for i in range(count(tree["layers"]))]
+    for key in STACKS:
+        if key in tree:
+            out[key] = [pick(tree[key], i) for i in range(count(tree[key]))]
     return out
+
+
+def encdec_from_numpy(tree: dict, device: str | torch.device = "cpu"
+                      ) -> dict:
+    """The reference's ``init_encdec`` params as the port's: ``encoder``
+    and ``decoder`` (``self_attn``, ``cross_attn``) each a list of
+    per-layer dicts; ``embed``, ``pos_embed``, ``enc_norm`` and
+    ``final_norm`` as they are."""
+    return decoder_lm_from_numpy(tree, device)
+
+
+def encdec_to_numpy(params: dict) -> dict:
+    """The port's encoder-decoder params as the reference's pytree of
+    numpy arrays (each stack's leaves on axis 0)."""
+    return decoder_lm_to_numpy(params)
 
 
 def lm_params_to_flat(params: dict) -> dict[str, np.ndarray]:

@@ -14,8 +14,10 @@
 // start to the last row's causal limit) are cut into n_split equal ranges
 // (n_split = ceil(visible / ops.SPLIT_KEYS), computed by the wrapper), one a
 // block along y; a block's range is cut again over its warps. A warp
-// walks its keys kUnroll at a time with the lanes over D (each lane D / 32
-// contiguous elements, one vector load a row), reduces each dot product
+// walks its keys kUnroll at a time with the lanes over D (each lane E
+// contiguous elements, one vector load a row: E = D / 32, or at D = 16
+// and D = 80 the least E that divides D with 32 E >= D, so 16 and 20
+// lanes work and the rest hold zeros), reduces each dot product
 // by shuffles and keeps, per row, its own running max, sum and
 // accumulator in registers (scores in log2 units, every product an
 // explicit fmaf). The warps merge through shared memory by the
@@ -46,6 +48,14 @@ struct Params {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// Elements of one row a lane holds: the least E >= ceil(D / 32) that
+// divides D (D / 32 for D in {32, 64, 128, 256}; 1 at D = 16; 4 at D = 80).
+__host__ __device__ constexpr int lane_elems(int d) {
+  int e = (d + 31) / 32;
+  while (d % e != 0) ++e;
+  return e;
 }
 
 // E contiguous elements of T at p (aligned to E * sizeof(T)) as floats.
@@ -91,7 +101,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T, int D, int kRows>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const Params p) {
-  constexpr int E = D >= 32 ? D / 32 : 1;  // elements a lane holds
+  constexpr int E = lane_elems(D);  // elements a lane holds
   constexpr int kUnroll = kRows <= 2 ? 4 : 2;
   extern __shared__ __align__(16) float smem[];
   float* sm_acc = smem;                          // [kWarps][kRows][D]
@@ -107,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = p.sq * group;
   const int r0 = blockIdx.z * kRows;
   const int n_rows = min(kRows, rows - r0);
-  const bool lane_on = lane * E < D;  // D = 16: half the lanes idle
+  const bool lane_on = lane * E < D;  // D = 16 or 80: lanes idle
   const long long q_stride = (long long)p.h * D;
   const long long kv_stride = (long long)p.hkv * D;
   const T* kb = static_cast<const T*>(p.k) +
@@ -330,6 +340,7 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
     case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;

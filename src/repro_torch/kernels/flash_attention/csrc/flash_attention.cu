@@ -7,7 +7,9 @@
 //   "wgmma"  (wgmma_prefill.cuh): bf16 at D in {64, 128, 256} above that:
 //            TMA tiles and wgmma, warp-specialised;
 //   "fma"    (this file): everything else, float32 prefill and bf16 at
-//            D in {16, 32}: float32 FMA tiles.
+//            D in {16, 32, 80}: float32 FMA tiles.
+// Every variant takes causal and non-causal launches (whisper's encoder
+// and its cross-attention are non-causal); D = 80 is zamba2's head.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py, _flash_kernel (reached through
@@ -272,6 +274,7 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
     case 16: return launch<T, 16>(p, stream);
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
@@ -281,10 +284,11 @@ cudaError_t dispatch(const Params& p, int d, cudaStream_t stream) {
 }  // namespace
 
 // q, o [B, Sq, H, D]; k, v [B, Sk, Hkv, D]; all bf16 (is_bf16) or float32,
-// contiguous, 16-byte aligned. D in {16, 32, 64, 128, 256}; H a multiple
+// contiguous, 16-byte aligned. D in {16, 32, 64, 80, 128, 256}; H a multiple
 // of Hkv. variant: 0 "fma", 1 "wgmma" (bf16, D >= 64), 2 "decode" (with
 // n_split key splits; ws_acc / ws_ml its float32 workspace when
-// n_split > 1). Launches on `stream` and returns cudaGetLastError(), or
+// n_split > 1); "wgmma" does not take D = 80. Launches on `stream` and
+// returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a variant that does not take the inputs.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int sq,

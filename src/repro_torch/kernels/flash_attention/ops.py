@@ -16,8 +16,13 @@ The kernel has three variants; :func:`variant` picks one from the dtype,
   merges the splits, from a float32 workspace allocated here);
 - ``"wgmma"`` for bf16 at D in ``WGMMA_DIMS`` above that: TMA tiles and
   ``wgmma`` on the tensor cores;
-- ``"fma"`` otherwise (float32 prefill, bf16 at D 16 or 32): float32 FMA
-  tiles.
+- ``"fma"`` otherwise (float32 prefill, bf16 at D 16, 32 or 80): float32
+  FMA tiles. "wgmma" stores its tiles as 64-column panels, which D=80
+  (zamba2's head) does not fill, so a bf16 prefill at D=80 takes "fma".
+
+Every variant takes causal and non-causal launches (whisper's encoder
+and every cross-attention are non-causal): a non-causal query sees every
+key below ``Sk`` inside its window.
 
 A variant that fails to build or launch raises; nothing falls back to
 another variant or to the plain version. ``launches`` counts wrapper
@@ -51,7 +56,7 @@ __all__ = ["flash_attention", "shape_key", "variant", "n_splits",
            "launches_by_shape", "launches_by_variant"]
 
 GLOBAL_WINDOW = 1 << 30     # a window this wide masks nothing: "global"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_DIMS = (64, 128, 256)
 DECODE_ROWS = 64            # "decode" takes Sq * group up to this
 SPLIT_KEYS = 512            # visible keys of one "decode" split

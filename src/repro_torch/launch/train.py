@@ -33,8 +33,10 @@ the CPU from ``--seed`` and moved (node r of a decentralized run from
 the r-th child of the seed), so every device starts from the same
 model; ``--init-from`` starts from a params checkpoint instead (either
 package's layout), and ``--ckpt`` saves the standard run's params in the
-reference's layout. The reference's default arch, xlstm-125m (ssm
-family), is not ported yet; the default here is granite-3-8b.
+reference's layout. The dense family trains; the others serve
+(``launch/serve``) but their training (the MoE aux loss through here,
+``encdec_loss``) is not ported yet, so the default here is granite-3-8b
+where the reference's is xlstm-125m.
 """
 
 from __future__ import annotations
@@ -309,8 +311,8 @@ def main(argv=None) -> RunLog:
     resolve_device(args.device)
     cfg = config_of(args)
     if cfg.family != "dense":
-        raise SystemExit(f"{cfg.name}: the {cfg.family} family is not "
-                         f"ported yet")
+        raise SystemExit(f"{cfg.name}: training of the {cfg.family} family "
+                         f"is not ported yet (it serves: launch.serve)")
     print(f"arch={cfg.name} family={cfg.family} layers={cfg.n_layers} "
           f"params~{cfg.n_params():,} mode={args.mode} "
           f"device={args.device}")

@@ -1,1 +1,2 @@
-"""LM scaffold: the dense decoder (layers, attention, transformer)."""
+"""LM scaffold: layers, attention, the decoder families (transformer,
+moe, mamba2, xlstm), the encoder-decoder and the frontend stubs."""

@@ -552,6 +552,31 @@ FLASH_CASES = [
      "decode"),
     (1, 8, 1200, 8, 1, 128, {"q_offset": 1192}, torch.float32, 2e-5,
      "decode"),
+    # non-causal (whisper's encoder and cross-attention): wgmma with Sq
+    # and Sk off the tiles, decode against 1,500 keys (3 splits), fma with
+    # Sq != Sk; head_dim 80 (zamba2) in decode and fma, causal or not;
+    # GQA group 7 (arctic) in decode
+    (2, 300, 300, 4, 4, 64, {"causal": False}, torch.bfloat16, 3e-2,
+     "wgmma"),
+    (1, 200, 333, 4, 2, 128, {"causal": False}, torch.bfloat16, 3e-2,
+     "wgmma"),
+    (2, 1, 1500, 12, 12, 64, {"causal": False}, torch.bfloat16, 3e-2,
+     "decode"),
+    (2, 1, 1500, 12, 12, 64, {"causal": False}, torch.float32, 2e-5,
+     "decode"),
+    (1, 100, 150, 4, 4, 64, {"causal": False}, torch.float32, 2e-5,
+     "fma"),
+    (2, 1, 160, 32, 32, 80, {"q_offset": 150}, torch.bfloat16, 3e-2,
+     "decode"),
+    (2, 1, 160, 4, 4, 80, {"q_offset": 159}, torch.float32, 2e-5,
+     "decode"),
+    (1, 130, 130, 4, 4, 80, {}, torch.float32, 2e-5, "fma"),
+    (1, 130, 130, 4, 2, 80, {"softcap": 30.0, "window": 40},
+     torch.bfloat16, 3e-2, "fma"),
+    (1, 1, 700, 4, 4, 80, {"causal": False}, torch.bfloat16, 3e-2,
+     "decode"),
+    (4, 1, 160, 56, 8, 128, {"q_offset": 100}, torch.bfloat16, 3e-2,
+     "decode"),
 ]
 # each output row's error (RMS over D) within this share of the row's RMS
 FLASH_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -587,6 +612,52 @@ def test_flash_attention_matches_plain_on_card(cuda_device, case):
     err = (got.double() - want.double()).pow(2).mean(-1).sqrt()
     size = want.double().pow(2).mean(-1).sqrt().clamp_min(1e-6)
     assert float((err / size).max()) <= FLASH_ROW_TOL[dtype]
+
+
+FAMILY_ARCHS = ["kimi_k2_1t_a32b", "arctic_480b", "zamba2_2p7b",
+                "xlstm_125m", "pixtral_12b", "whisper_small"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_step_on_card_matches_cpu(cuda_device, arch):
+    """One served step of each family's smoke variant (float32, weights
+    drawn on the CPU) on the card against the CPU, after a prompt of 6
+    teacher-forced steps: every logit within 1e-4 of max|logit| (the
+    card's float32 sums in another order, K5 among them)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import serve
+
+    cfg = smoke_variant(get_config(arch))
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_impl="ragged")
+    runs = {}
+    for where in ("cpu", "cuda"):
+        dev = torch.device(where)
+        gen = torch.Generator().manual_seed(1)
+        frames = None
+        if cfg.family == "encdec":
+            params = serve.ed.init_encdec(cfg, gen, device=dev)
+            frames = serve.fe.audio_frames_stub(cfg, gen, 2, 16, device=dev)
+        else:
+            params = serve.tf.init_decoder_lm(cfg, gen, device=dev)
+        prompt = torch.randint(0, cfg.vocab_size, (2, 7), generator=gen)
+        prompt = prompt.to(dev)
+        with torch.no_grad():
+            if cfg.family == "encdec":
+                caches = serve.ed.init_encdec_caches(cfg, params, frames, 2, 7)
+                step = serve.ed.decode_step_encdec
+            else:
+                caches = serve.tf.init_caches(cfg, 2, 7, dev)
+                step = serve.tf.decode_step
+            for i in range(7):
+                out = step(cfg, params, prompt[:, i:i + 1], caches, i)
+                caches = out.caches
+        runs[where] = out.logits.float().cpu()
+    want = runs["cpu"]
+    err = float((runs["cuda"] - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max())
 
 
 def test_flash_attention_refuses_bad_launches_on_card(cuda_device):

@@ -68,7 +68,9 @@ def model(request):
 
 
 def test_configs_match_reference():
-    assert list_archs() == ARCHS
+    from repro.configs import list_archs as ref_list_archs
+    assert list_archs() == ref_list_archs()
+    assert set(ARCHS) <= set(list_archs())
     for arch in ARCHS:
         full, ref_full = get_config(arch), ref_get_config(arch)
         assert full.n_params() == ref_full.n_params()
@@ -78,8 +80,8 @@ def test_configs_match_reference():
             assert port == {k: v for k, v in vars(ref).items()}
     assert get_config("gemma2-2b").n_params() == 2_614_099_968
     assert get_config("gemma2_2b").torch_dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("kimi_k2_1t_a32b")
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("llama_7b")
 
 
 def test_rmsnorm_and_layernorm_match_reference():
@@ -237,8 +239,16 @@ def test_serve_main_defaults_to_cuda(monkeypatch):
 
 
 def test_other_families_raise():
+    """Every decoder family is served now; an encoder-decoder config
+    given to ``init_decoder_lm`` raises ``ValueError``, as the
+    reference's does (whisper goes through ``models/encdec``)."""
     import dataclasses
     cfg = dataclasses.replace(smoke_variant(get_config("granite_3_8b")),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+                              family="encdec")
+    with pytest.raises(ValueError, match="unsupported family encdec"):
         tf.init_decoder_lm(cfg, torch.Generator().manual_seed(0))
+    with reference_mode():
+        with pytest.raises(ValueError, match="unsupported family encdec"):
+            ref_tf.init_decoder_lm(
+                dataclasses.replace(ref_smoke(ref_get_config("granite_3_8b")),
+                                    family="encdec"), jax.random.key(0))
