@@ -143,15 +143,18 @@
    ranks' launches by shape, summed, must equal it. Prints rounds/s, the
    wire bytes a round (``MeshComm.bytes_per_round``) and peak memory a
    rank.
-6. The LM slice (the port's fourth): gemma2-2b at full width (26 layers, d=2304,
-   vocab 256,000, random bf16 weights from seed 0). ``flash_attention``
+6. The LM slice (the port's fourth): gemma2-2b at full width (d=2304,
+   vocab 256,000, random bf16 weights from seed 0), its 26 layers cut
+   to 8 (``LM``). ``flash_attention``
    (K5) is held against its plain version at every shape the phase
    launches (bf16 within 3e-2, float32 within 2e-5; and each output
    row's error within ``ROW_TOL`` of that row's size, a limit shown to
    catch a dropped key split or tile, or inputs rounded to bf16, by a
    control at the long shapes) and timed beside its
-   bound and a compiled ``flex_attention`` call (the library yardstick,
-   "none" with its error if it does not run): serving's decode against
+   bound and a library call (the yardstick, ``_library_kind``: a
+   compiled ``flex_attention`` where there is a softcap, as at every
+   gemma2 shape, ``scaled_dot_product_attention`` elsewhere; "none"
+   with its error if it does not run): serving's decode against
    the cache (B=4, Sq=1, S_max=192) at q_offset 0, 95 and 190, the
    float32 check's forward [4, 128] and decode (S_max=128), the bf16
    prefill at S=8192, the bf16 decode against an S=8192 cache at its
@@ -161,22 +164,24 @@
    every counted run below checks the launches by variant too. Then, with
    the counters set to 0 before each and read after:
    ``launch.serve.main`` (``--arch gemma2_2b --full --batch 4
-   --prompt-len 128 --gen 64``): 26 x 191 K5 launches, half local and
+   --prompt-len 128 --gen 64 --layers 8``): 8 x 191 K5 launches, half
+   local and
    half global, every one at a held shape; prefill s, decode s, tok/s
    and peak memory. The float32 forward over a [4, 128] prompt against
    the same prompt teacher-forced through ``decode_step`` (rel max error
    of the logits < 2e-3, ``tests/test_decode_consistency.py``'s bound).
-   ``forward`` once at B=1, S=8192 in bf16 (26 launches): seconds and
+   ``forward`` once at B=1, S=8192 in bf16 (8 launches): seconds and
    peak memory, then once more under ``torch.profiler`` (device time by
    kernel). 8 bf16 decode steps against an S=8192 cache of random
-   keys and values (26 x 8 launches, the keys split over blocks). Then 8
+   keys and values (8 x 8 launches, the keys split over blocks). Then 8
    decode steps under ``torch.profiler``.
    Then gemma2-9b (d=3584, GQA 16/8, head_dim 256; its 42 layers cut
-   to 10 since PR 23; random bf16 weights drawn on the CPU): K5
+   to 4; random bf16 weights drawn on the CPU): K5
    held at its decode shapes (B=4, S_max=160, with the compiled
-   yardstick) and its float32 check's (no yardstick: a compile a shape),
-   ``launch.serve.main`` at B=4, prompt 128, 32 new tokens (42 x 159 K5
-   launches), and the float32 forward against teacher-forced decode at a
+   yardstick) and its float32 check's (``flex_attention`` not compiled
+   its yardstick: a compile took minutes), ``launch.serve.main`` at
+   B=4, prompt 128, 32 new tokens (4 x 159 K5 launches a kind), and
+   the float32 forward against teacher-forced decode at a
    [4, 64] prompt (rel < 2e-3); tok/s, prefill s, peak memory and the
    weight draw's seconds.
 6b. The other LM families, each at full width through
@@ -185,8 +190,8 @@
    ``FAMILY_RUNS``): kimi-k2 at 2 of 61 layers (the dense first layer
    and one MoE layer: 384 experts, top-8, capacity dispatch, a shared
    expert), arctic at 1 of 35 (a dense residual beside 128-expert
-   top-2), zamba2-2.7b whole (54 Mamba2 layers, 9 shared-attention
-   stages, head_dim 80), xlstm-125m whole, pixtral-12b at 10 of 40 (and
+   top-2), zamba2-2.7b at 18 of 54 Mamba2 layers (3 of its 9
+   shared-attention stages, head_dim 80), xlstm-125m whole, pixtral-12b at 10 of 40 (and
    its forward with 256 image tokens), whisper-small whole (the encoder
    at 1,500 stub frames, non-causal, and 12 cross-attention decodes a
    step against it). K5 is held first at every new shape (non-causal,
@@ -213,19 +218,47 @@
       memory; one more step under ``torch.profiler`` (device time in
       K5, the attention backward, the optimizer, other matmuls; the
       card's idle share).
-   d. ``train_decentralized`` at full width, depth cut to 4 layers, 4
-      gloo ranks sharing the card (one node a rank), H = 2, 5 steps, B=2,
+   d. ``train_decentralized`` at full width, depth cut to 2 layers, 4
+      gloo ranks sharing the card (one node a rank), H = 2, 3 steps, B=2,
       once each with allreduce, gossip-hypercube and gossip-ring[1]:
       spread 0 after the exact syncs and > 0 after ring[1], the loss
       finite and falling, K5 counted on every rank and no K1 launched
       (no pair inside a rank); s/step, a sync's seconds and bytes beside
-      ``collective_bytes_per_sync``, peak memory a rank. Then
-      ``sync_tree_sim`` (exact hypercube) over a stacked 4-node copy of
-      that tree on the card: K1's launches by shape equal leaves x
-      rounds, and every node ends equal bit for bit.
+      ``collective_bytes_per_sync``, peak memory a rank. The same ranks
+      then train xlstm-125m whole (the default arch; exact hypercube,
+      B=2, S=256, H=1, 3 steps, ``FDEC``): the loss finite, spread 0,
+      no K1 or K5 launched. Then ``sync_tree_sim`` (exact hypercube)
+      over a stacked 4-node copy of gemma2's tree on the card: K1's
+      launches by shape equal leaves x rounds, and every node ends equal
+      bit for bit.
    e. The granite smoke variant in float32, 3 AdamW and 3 Adafactor
       steps on the card and on the CPU from the same params: losses
       rtol 1e-5, params within the CPU tests' AdamW bound; TF32 off.
+   f. Every other family the reference trains (``FAMILY_TRAIN``), bf16
+      at full width: K5 and its gradient held first at each new shape
+      (zamba2's D=80 "fma", whisper's non-causal encoder at 1,500 frames
+      and cross-attention against it, its decoder, pixtral's GQA 4 over
+      256 image and 256 text tokens, arctic's GQA 7), each with SDPA's
+      forward and backward beside it. Then
+      zamba2-2.7b whole (AdamW, remat "full", B=4, S=512, 5 steps),
+      xlstm-125m whole through ``launch.train.main`` with no ``--arch``
+      (the default; 3 steps), whisper-small whole (1,500 stub frames, decoder
+      S=256), pixtral at 10 of 40 layers (B=2, 256 stub image tokens
+      and S=256) and arctic at 1 of 35 (Adafactor in pieces, B=1,
+      S=256, 3 steps), the last four through ``steps.make_train_step``
+      on weights drawn on the card; each counted by shape and variant,
+      every loss and grad norm finite; s/step, tokens/s, peak memory,
+      first and last loss. One more zamba2 step under ``torch.profiler``
+      (K5, the attention backward, the Mamba2 blocks' forward and
+      recompute, the optimizer, the rest; the idle share). K1 held at
+      the stacked 4-node xlstm tree's leaf shapes and dtypes (both
+      blocks' of a layer; the sLSTM's are float32) and
+      ``sync_tree_sim`` over it. Phase e's trajectory for the xlstm and
+      whisper smoke variants (3 AdamW steps) and arctic's (one
+      Adafactor step, on the card in pieces of one expert matrix):
+      losses rtol 1e-5, the parameters within the CPU tests' split
+      bound (``_gate_params``), K5 at whisper's smoke shapes held with
+      SDPA's forward and backward beside it.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
    counted launches; K2's, K3's and K4's shapes also carry ``chain_ms``,
@@ -235,14 +268,14 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, families, lifecycle, scenario, Scale and training
-   numbers with the card, and the script's seconds (each phase's end is
-   printed as it comes). K5's library yardstick (a compiled
-   ``flex_attention`` a held shape, about 8.5 s of compile each) is
-   compiled ahead by one spawned process at the lowest priority, from
-   the start and in the LM phases' order (``_warm_library``); a hold
-   reads its inductor and Triton caches, and compiles itself a shape the
-   process has not reached.
+   LM-serving, families, lifecycle, scenario, Scale, training and the
+   families' training numbers with the card, and the script's seconds
+   (each phase's end is printed as it comes). K5's compiled
+   ``flex_attention`` yardstick (the softcap shapes, about 8.5 s of
+   compile each) is compiled ahead by one spawned process at the lowest
+   priority, from the start and in the LM phases' order
+   (``_warm_library``); a hold reads its inductor and Triton caches, and
+   compiles itself a shape the process has not reached.
 8. Prints the card's name and power limit, then ``{"ok": true, ...}``.
 
 Any failed phase raises and the script exits non-zero. Without a CUDA
@@ -348,21 +381,26 @@ SCEN_FULL = dict(segments=4, drop=0.1, churn=0.2, join=(49, 20),
 # requests --restore-train serves from node 3
 LIFE_DECAY = (5.0, 0.8)
 LIFE_REQUESTS = 512
-# the LM slice: gemma2-2b at full width served through launch/serve, and
-# one prefill at S=8192 (the catalog's prefill_32k cut: its [32, 32768,
+# the LM slice: gemma2-2b at full width served through launch/serve, its
+# depth cut from 26 to 8 layers (whole until the script outgrew its time
+# limit: the CPU draw of 2.6 B weights alone took 21-26 s), and one
+# prefill at S=8192 (the catalog's prefill_32k cut: its [32, 32768,
 # 256000] logits alone would be 537 GB in bf16)
-LM = dict(arch="gemma2_2b", batch=4, prompt=128, gen=64, seed=0)
+LM = dict(arch="gemma2_2b", batch=4, prompt=128, gen=64, seed=0, layers=8)
 LM_ARGS = ["--arch", LM["arch"], "--full", "--batch", str(LM["batch"]),
            "--prompt-len", str(LM["prompt"]), "--gen", str(LM["gen"]),
-           "--seed", str(LM["seed"]), "--device", "cuda"]
+           "--seed", str(LM["seed"]), "--layers", str(LM["layers"]),
+           "--device", "cuda"]
 PREFILL_S = 8192
 LONG_STEPS = 8                 # decode steps against an S=8192 cache
-# gemma2-9b served at full width, its depth cut from 42 to 10 layers since
-# PR 23 (the training phase needs the time; the 42-layer run's numbers are
-# PR 22's), bf16 weights drawn on the CPU, and its float32 forward/decode
-# consistency at a short prompt
+# gemma2-9b served at full width, its depth cut from 42 to 4 layers (the
+# training phases need the time), bf16 weights drawn on the CPU, and its
+# float32 forward/decode consistency at a short prompt, whose library
+# yardstick is flex_attention not compiled (its float32 D=256 compile
+# took over 600 s on the H100's host, and its time swung 50x between
+# compiles); gemma2-2b's is compiled
 LM9 = dict(arch="gemma2_9b", batch=4, prompt=128, gen=32, seed=0,
-           f32_prompt=64, layers=10)
+           f32_prompt=64, layers=4, f32_library="flex_eager")
 LM9_ARGS = ["--arch", LM9["arch"], "--full", "--batch", str(LM9["batch"]),
             "--prompt-len", str(LM9["prompt"]), "--gen", str(LM9["gen"]),
             "--seed", str(LM9["seed"]), "--layers", str(LM9["layers"]),
@@ -371,7 +409,9 @@ LM9_ARGS = ["--arch", LM9["arch"], "--full", "--batch", str(LM9["batch"]),
 # launch.serve.generate at B=4, prompt 128, 32 new tokens, its bf16
 # weights drawn on the card from a seeded CUDA generator; depth cut where
 # memory forces it (kimi 2 of 61 layers, the dense first one and one MoE
-# layer; arctic 1 of 35) or time (pixtral 10 of 40, as gemma2-9b); the
+# layer; arctic 1 of 35) or time (pixtral 10 of 40, as gemma2-9b; zamba2
+# 18 of 54, 3 whole stages, since it outgrew the time limit: zamba2
+# trains whole in phase f); the
 # float32 forward against the teacher-forced step over the prompt (arctic
 # with ragged dispatch: a forward over B x S tokens drops tokens under
 # capacity where a one-token step does not; kimi's float32 weights, 75
@@ -381,7 +421,7 @@ FAMILY_RUNS = (
     dict(tag="kimi", arch="kimi_k2_1t_a32b", layers=2, f32=None),
     dict(tag="arctic", arch="arctic_480b", layers=1,
          f32=dict(moe_impl="ragged")),
-    dict(tag="zamba2", arch="zamba2_2p7b", layers=None, f32={}),
+    dict(tag="zamba2", arch="zamba2_2p7b", layers=18, f32={}),
     dict(tag="xlstm", arch="xlstm_125m", layers=None, f32={}),
     dict(tag="pixtral", arch="pixtral_12b", layers=10, f32={}),
     dict(tag="whisper", arch="whisper_small", layers=None, f32={}),
@@ -398,11 +438,12 @@ MESH_WARMUP = 2
 MESH_TIMEOUT_S = 300           # a spawned mesh phase that hangs fails
 MESH_TRAJ = dict(k=3, v=24, l=8, n=8, docs=4, batch=2, rounds=12, every=6)
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
-# K5's library yardstick is one compiled flex_attention a held shape
-# (8.5-15 s of the host's compile each, 42 calls): a spawned process at
-# the lowest priority compiles them in the LM phases' order from the
-# start, into the inductor and Triton caches that the holds then read;
-# nothing waits for it (a hold compiles a shape it has not reached yet)
+# K5's library yardstick is SDPA where there is no softcap, and one
+# compiled flex_attention a gemma2 (softcap) shape (8.5-15 s of the host's
+# compile each): a spawned process at the lowest priority compiles those
+# in the LM phases' order from the start, into the inductor and Triton
+# caches that the holds then read; nothing waits for it (a hold compiles
+# a shape it has not reached yet)
 # K5's row check: the RMS over D of the error of one output row (batch,
 # query, head) over the RMS of that row of the plain version. A bf16 row
 # carries two roundings of its values (under 4e-3); a 512-key split or a
@@ -410,16 +451,60 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the training slice: gemma2-2b at full width and depth in standard mode
 # (the cosine schedule warms up over 100 steps: 1e-4 .. 1e-3 here); the
-# decentralized run at full width, depth cut to 4 layers (the 590M
-# embedding sets a node's size), 4 gloo ranks on the one card at batch 2
-# a node (4 x 15 GB); the float32 trajectory at the granite smoke width
+# decentralized run at full width, depth cut to 2 layers (4 until the
+# families' training took the time; the 590M embedding sets a node's
+# size), 4 gloo ranks on the one card at batch 2 a node, 3 steps (5
+# until the script outgrew its time limit: a sync spec's run costs a
+# consensus all-reduce and two spreads besides its steps); the float32
+# trajectory at the granite smoke width
 TRAIN = dict(arch="gemma2_2b", batch=4, seq=512, steps=10)
 TRAIN_LR = 1e-2
-DEC = dict(layers=4, nodes=4, local_steps=2, steps=5, batch=2,
+DEC = dict(layers=2, nodes=4, local_steps=2, steps=3, batch=2,
            syncs=("allreduce", "gossip-hypercube", "gossip-ring[1]"))
 DEC_TIMEOUT_S = 600
 TRAJ = dict(arch="granite_3_8b", batch=2, seq=64, steps=3)
 TRAJ_LR = 1e-2
+# the families' training: each family the reference trains, at
+# full width in bf16, its weights drawn on the card from a seeded CUDA
+# generator (xlstm-125m, the reference's default arch, through
+# launch.train.main, whose CPU draw is a second at 125M parameters; the
+# rest through launch.steps.make_train_step, as train_standard steps it);
+# zamba2, xlstm and whisper whole, pixtral at 10 of 40 layers (as it
+# serves), arctic at 1 of 35 (27.9 GB of weights and as much of
+# gradients: kimi's 2 layers, 37.8 GB of weights, do not fit with their
+# gradients); S a multiple of ssd_chunk and xlstm_chunk (256); whisper's
+# 1,500 stub frames, pixtral's 256 stub image tokens before its text
+FTRAIN_LR = 1e-2
+FAMILY_TRAIN = (
+    dict(tag="zamba2", arch="zamba2_2p7b", layers=None, batch=4, seq=512,
+         steps=5),
+    dict(tag="xlstm", arch="xlstm_125m", layers=None, batch=4, seq=512,
+         steps=3),
+    dict(tag="whisper", arch="whisper_small", layers=None, batch=4,
+         seq=256, steps=5),
+    dict(tag="pixtral", arch="pixtral_12b", layers=10, batch=2, seq=256,
+         steps=5),
+    dict(tag="arctic", arch="arctic_480b", layers=1, batch=1, seq=256,
+         steps=3),
+)
+# xlstm-125m decentralized, in phase d's ranks after gemma2-2b's runs:
+# exact hypercube, B=2 a node at S=256, H=1, 3 steps (its sLSTM is a loop
+# over time on the host: 5.5-8.1 s a step at B=4, S=512 in one process on
+# the H100, and the ranks share the host's 8 cores; xlstm trains 3 steps
+# in phase f too, both cut from 5 to keep the script in its time limit)
+FDEC = dict(nodes=4, local_steps=1, steps=3, batch=2, seq=256,
+            sync="gossip-hypercube")
+# phase e's float32 trajectory also trains these smoke variants (whisper
+# at 48 stub frames, so its encoder and cross-attention shapes differ;
+# arctic one Adafactor step, on the card with CHUNK cut below one expert
+# matrix, so each expert leaf is updated a matrix at a time in two
+# passes, against the CPU's one piece a leaf)
+TRAJ_FAMILIES = (dict(arch="xlstm_125m", frames=None, steps=TRAJ["steps"]),
+                 dict(arch="whisper_small", frames=48, steps=TRAJ["steps"]),
+                 dict(arch="arctic_480b", frames=None, steps=1, chunk=1000))
+# a gradient element is resolved where it is at least this share of its
+# leaf's max |g| on the CPU (``tests/test_torch_train_families.py``)
+GRAD_REL = 1e-4
 # the attention backward against autograd of the plain version, of each
 # tensor's max (``_hold_train_attention``)
 BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
@@ -620,7 +705,7 @@ def _hold_gibbs(rt, dev, case, k, v, seed):
     kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
     plain_ms, want = _time_ms(
         lambda: rt.estep.gibbs_sweeps_dense(bw, mf, u, z0, **kw),
-        reps=case.get("plain_reps", 2), warmup=0)
+        reps=1, warmup=0)
     ms, got = _time_ms(lambda: rt.gibbs_ops.gibbs_sweeps(bw, mf, u, z0, **kw),
                        reps=7, device_only=True)
     bad = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -665,7 +750,7 @@ def _hold_l2r(rt, dev, case, k, v, seed):
                              torch.arange(b, device=dev))
     plain_ms, want = _time_ms(
         lambda: rt.evaluation.l2r_position_scores(kd, bw, mf, 0.5, p, cw),
-        reps=case.get("plain_reps", 2), warmup=0)
+        reps=1, warmup=0)
     ms, got = _time_ms(
         lambda: rt.l2r_ops.l2r_scores(kd, bw, mf, 0.5, n_particles=p,
                                       count_weighted=cw),
@@ -722,7 +807,7 @@ def _hold_sparse(rt, dev, case, k, v, seed):
     kw = dict(alpha=0.5, n_sweeps=s, burnin=burnin)
     plain_ms, want = _time_ms(
         lambda: rt.estep.gibbs_sweeps_sparse(bw, cf, un, z0, **kw),
-        reps=case.get("plain_reps", 2), warmup=0)
+        reps=1, warmup=0)
     ms, got = _time_ms(lambda: rt.sparse_ops.sparse_sweeps(bw, cf, un, z0,
                                                            **kw),
                        reps=7, device_only=True)
@@ -1323,7 +1408,7 @@ def _zipf_cases(rt, corpus, u_max):
     tw = corpus.test_words.repeat(f["probes"], 1)
     tm = corpus.test_mask.repeat(f["probes"], 1)
     tuw, tc = rt.estep.dense_to_unique(tw, tm)
-    kv = dict(k=f["k"], v=f["v"], plain_reps=1)
+    kv = dict(k=f["k"], v=f["v"])
     gib = dict(kv, s=30, burnin=15)
     cases = []
     for mode, b in (("sync", f["n"] * f["batch"]), ("async", 2 * f["batch"])):
@@ -2045,18 +2130,62 @@ def _flash_bound(case, q_offset):
     return _bound(bytes_moved, ops, peak), pairs
 
 
+def _sdpa_attention(q, k, v, case, q_offset, grad=None):
+    """One ``scaled_dot_product_attention`` call of the same function, as
+    a callable (with ``grad``, its forward and backward): any shape with
+    no softcap. A causal launch at Sq = Sk from offset 0 with no window
+    takes ``is_causal``; any other causal or windowed one a boolean mask
+    of the pairs K5 keeps (query i + q_offset sees key j when j <= i +
+    q_offset, causal, and i + q_offset - j < window)."""
+    if case["softcap"]:
+        raise ValueError(f"{case['phase']}: scaled_dot_product_attention "
+                         f"has no softcap")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    causal = case.get("causal", True)
+    sq, sk, window = case["sq"], case["sk"], case["window"]
+    kw = dict(scale=case["scale"])
+    if causal and sq == sk and not q_offset and window >= sk:
+        kw["is_causal"] = True
+    elif causal or window <= sq - 1 + q_offset:
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+        ki = torch.arange(sk, device=q.device)[None, :]
+        mask = qi - ki < window
+        kw["attn_mask"] = mask & (qi >= ki) if causal else mask
+    if case["h"] != case["hkv"]:
+        kw["enable_gqa"] = True
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if grad is None:
+        return lambda: sdpa(qh, kh, vh, **kw).transpose(1, 2)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    gh = grad.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(sdpa(*leaves, **kw), leaves, gh)
+
+
+def _library_kind(case):
+    """The library call a K5 hold times: the case's ``library`` where it
+    names one, else "sdpa" where there is no softcap and "flex" (a
+    compiled ``flex_attention``) where there is."""
+    return case.get("library") or ("flex" if case["softcap"] else "sdpa")
+
+
 def _library_attention(rt, q, k, v, case, q_offset, grad=None):
-    """One compiled ``flex_attention`` call of the same function (tanh
-    softcap ``score_mod`` where there is a softcap, causal + window
-    ``mask_mod``, or no mask for a non-causal global launch), as a
-    callable; the offset and window ride in as tensors, so one compile
-    serves every offset of a shape. Compiled for static shapes (one
+    """The library call of the same function that ``_library_kind``
+    names, as a callable: "flex" one compiled
+    ``flex_attention`` call (tanh softcap ``score_mod`` where there is a
+    softcap, causal + window ``mask_mod``, or no mask for a non-causal
+    global launch), the offset and window riding in as tensors, so one
+    compile serves every offset of a shape; "flex_eager" the same call
+    not compiled (where a compile takes minutes); "sdpa"
+    ``_sdpa_attention`` (no compile). Compiled for static shapes (one
     specialised compile a shape: after a first shape, dynamo would
     otherwise recompile with dynamic sizes, whose kernels ran up to 10x
     slower at some float32 shapes). With ``grad`` (the output's
     gradient) the call is its forward and backward."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
+    kind = _library_kind(case)
+    if kind == "sdpa":
+        return _sdpa_attention(q, k, v, case, q_offset, grad)
     if rt.flex is None:
         # every held shape is compiled once; past dynamo's default
         # recompile limit (8) a call would run flex_attention eagerly
@@ -2086,16 +2215,17 @@ def _library_attention(rt, q, k, v, case, q_offset, grad=None):
     scale = case["scale"]
     kw = dict(score_mod=score_mod if cap else None, block_mask=mask,
               scale=scale, enable_gqa=True)
+    flex = rt.flex if kind == "flex" else flex_attention
 
     if grad is None:
         def call():
-            return rt.flex(qh, kh, vh, **kw).transpose(1, 2)
+            return flex(qh, kh, vh, **kw).transpose(1, 2)
         return call
     leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
     gh = grad.transpose(1, 2).contiguous()
 
     def call_grad():
-        return torch.autograd.grad(rt.flex(*leaves, **kw), leaves, gh)
+        return torch.autograd.grad(flex(*leaves, **kw), leaves, gh)
     return call_grad
 
 
@@ -2122,11 +2252,13 @@ def _flash_cases(rt, lm=LM, prefix="", long=True):
                  variant="decode", offsets=(0, s_max // 2 - 1, s_max - 2)),
             dict(w, phase=f"{prefix}f32_forward_{kind}", b=lm["batch"],
                  sq=f32, sk=f32, dtype=torch.float32,
-                 tol=2e-5, variant="fma", offsets=(0,), control="bf16"),
+                 tol=2e-5, variant="fma", offsets=(0,), control="bf16",
+                 library=lm.get("f32_library")),
             dict(w, phase=f"{prefix}f32_decode_{kind}", b=lm["batch"], sq=1,
                  sk=f32, dtype=torch.float32, tol=2e-5,
                  variant="decode", control="bf16",
-                 offsets=(0, f32 // 2 - 1, f32 - 1))]
+                 offsets=(0, f32 // 2 - 1, f32 - 1),
+                 library=lm.get("f32_library"))]
         if long:
             cases += [
                 dict(w, phase=f"{prefix}prefill_{kind}", b=1, sq=PREFILL_S,
@@ -2225,14 +2357,17 @@ def _hold_flash(rt, dev, case, seed):
     plain_ms, _ = _time_ms(lambda: plain(mid), reps=2, warmup=1)
     (bound, by), pairs = _flash_bound(case, mid)
     lib_ms, lib_err = None, None
+    t_lib = time.perf_counter()
     try:
         call = _library_attention(rt, q, k, v, case, mid)
         lib_ms, out = _time_ms(call, reps=5, warmup=2, device_only=True)
         lib_err = float((out.float() - plain(mid).float()).abs().max())
-        library = f"{lib_ms:.4f} ms (max_abs_err {lib_err:.3g})"
+        library = (f"{_library_kind(case)} {lib_ms:.4f} ms "
+                   f"(max_abs_err {lib_err:.3g})")
     except Exception as exc:          # recorded, not fatal: a yardstick
         lib_ms = None
         library = f"none: {type(exc).__name__}: {str(exc)[:200]}"
+    lib_s = time.perf_counter() - t_lib   # lint: allow(timer-no-barrier)
     shape = (f"B={b} Sq={sq} Sk={sk} H={h}/{hkv} D={d} "
              f"{'bf16' if case['dtype'] == torch.bfloat16 else 'f32'} "
              f"{case['kind']}{'' if kw['causal'] else ' non-causal'} "
@@ -2244,7 +2379,8 @@ def _hold_flash(rt, dev, case, seed):
           f"); {by_offset[mid]:.4f} ms at offset {mid} (all "
           f"{ {o: round(t, 4) for o, t in by_offset.items()} }), plain "
           f"{plain_ms:.3f} ms, bound {bound:.5f} ms by {by}, library "
-          f"{library} | {rt.card}", flush=True)
+          f"{library} ({lib_s:.1f} s with its compile) | {rt.card}",
+          flush=True)
     key = rt.flash_ops.shape_key(q, k, case["window"], case["softcap"])
     return dict(name="flash_attention", key=key, shape=shape,
                 phase=case["phase"], variant=var, ms=by_offset[mid],
@@ -2258,12 +2394,15 @@ def _hold_flash(rt, dev, case, seed):
 
 def _library_jobs(rt):
     """Every library call a K5 hold compiles: (case, with its backward)
-    for each held shape of the LM, families and training phases."""
+    for each held shape of the LM, families and training phases whose
+    library call is the compiled ``flex_attention``."""
     cases = (_flash_cases(rt) + _flash_cases(rt, LM9, prefix="9b_",
                                              long=False)
-             + _family_flash_cases(rt) + _train_flash_cases(rt))
-    return ([(c, False) for c in cases]
-            + [(c, True) for c in cases if c["phase"].startswith("train_")])
+             + _family_flash_cases(rt) + _train_flash_cases(rt)
+             + _ftrain_flash_cases(rt))
+    flex = [c for c in cases if _library_kind(c) == "flex"]
+    return ([(c, False) for c in flex]
+            + [(c, True) for c in flex if c["phase"].startswith("train_")])
 
 
 def _warm_library(jobs):
@@ -2277,7 +2416,8 @@ def _warm_library(jobs):
     torch._inductor.config.compile_threads = 1
     rt = _Port()
     dev = torch.device("cuda")
-    for case, grad in jobs:
+    t0 = time.perf_counter()
+    for i, (case, grad) in enumerate(jobs):
         b, sq, sk, h, hkv, d = (case[x] for x in ("b", "sq", "sk", "h",
                                                    "hkv", "d"))
         try:
@@ -2294,6 +2434,10 @@ def _warm_library(jobs):
             torch.cuda.synchronize()
         except Exception:             # the hold records the error
             pass
+        print(f"library yardstick: compile {i + 1}/{len(jobs)} "
+              f"({case['phase']}{', backward' if grad else ''}) done "
+              f"{time.perf_counter() - t0:.1f} s after the process "
+              f"started", flush=True)
 
 
 def _start_library_warmer(rt):
@@ -2418,7 +2562,8 @@ def _drive_lm(rt, dev):
     consistency at full width (counted), the bf16 prefill at S=8192
     (counted) and a profiled window of decode steps. Returns (rows,
     the ``lm_serving`` numbers)."""
-    cfg = rt.get_config(LM["arch"])
+    cfg = dataclasses.replace(rt.get_config(LM["arch"]),
+                              n_layers=LM["layers"])
     cases = _flash_cases(rt)
     rows = [_hold_flash(rt, dev, c, 90 + i) for i, c in enumerate(cases)]
     torch.cuda.synchronize()
@@ -2537,7 +2682,8 @@ def _drive_lm(rt, dev):
 
     k5_decode_ms = sum(r["ms"] * r["launches"] for r in rows
                        if r["phase"] in ("decode_local", "decode_global"))
-    lm = {"arch": cfg.name, "n_params": cfg.n_params(),
+    lm = {"arch": cfg.name, "layers": cfg.n_layers,
+          "n_params": cfg.n_params(),
           "batch": LM["batch"], "prompt_len": LM["prompt"],
           "gen": LM["gen"], "decode_steps": steps,
           "prefill_s": served["prefill_sec"],
@@ -2555,7 +2701,8 @@ def _drive_lm(rt, dev):
           "long_cache_k5_ms_per_step": k5_long_ms / LONG_STEPS,
           "init_s": served["init_sec"],
           "decode_profile": profile, "card": rt.card}
-    print(f"gemma2-2b serving B={LM['batch']} prompt {LM['prompt']} gen "
+    print(f"gemma2-2b ({cfg.n_layers} of 26 layers) serving B="
+          f"{LM['batch']} prompt {LM['prompt']} gen "
           f"{LM['gen']}: prefill {lm['prefill_s']:.3f} s, decode "
           f"{lm['decode_s']:.3f} s = {lm['decode_tok_per_s']:.1f} tok/s, "
           f"peak {lm['serve_peak_mem_gb']:.2f} GB | {rt.card}", flush=True)
@@ -3298,38 +3445,44 @@ def _train_args(extra):
             "--device", "cuda", *extra]
 
 
-def _hold_mix_bf16(rt, dev, shape, pairs, seed):
-    """K1 in bfloat16 against its plain version (exact), and their times.
-    Bound: two rows read and two written per pair, 2 bytes an element."""
+def _hold_mix_leaf(rt, dev, shape, pairs, seed, dtype=torch.bfloat16):
+    """K1 on a parameter leaf's dtype (bfloat16, or float32 as the sLSTM's
+    leaves) against its plain version (exact), and their times. Bound:
+    two rows read and two written per pair."""
     n = shape[0]
     row = int(np.prod(shape[1:]))
+    elem = 2 if dtype == torch.bfloat16 else 4
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
     g = torch.Generator(device=dev).manual_seed(seed)
-    stats = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    stats = torch.randn(shape, generator=g, device=dev).to(dtype)
     partners = _mix_partners(n, pairs, seed)
     plan = rt.mix_ops.pairs_of(partners)
     plain_ms, want = _time_ms(
         lambda: rt.mix_ref.mix_pairs_ref_(stats.clone(), plan), reps=3)
     got = rt.mix_ops.mix_pairs_(stats.clone(), plan)
     err = float((got.float() - want.float()).abs().max())
-    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-        raise AssertionError(f"gossip_mix bf16 differs from its plain "
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    if not torch.equal(got.view(bits), want.view(bits)):
+        raise AssertionError(f"gossip_mix {name} differs from its plain "
                              f"version at {shape}, {pairs} pairs: max error "
                              f"{err}")
-    # the bf16 bits are the bf16 sum halved (the reference's bf16 op)
+    # the bits are the sum halved in the leaf's dtype (the reference's op)
     i, j = (torch.as_tensor(plan[:, c], device=dev) for c in (0, 1))
-    if not torch.equal(got[i], 0.5 * (stats[i] + stats[j])):
-        raise AssertionError(f"gossip_mix bf16 at {shape}: not the bf16 "
-                             f"0.5 * (a + b)")
+    if not torch.equal(got[i].view(bits),
+                       (0.5 * (stats[i] + stats[j])).view(bits)):
+        raise AssertionError(f"gossip_mix {name} at {shape}: not the "
+                             f"{name} 0.5 * (a + b)")
     del got, want
     work = stats.clone()
     ms, _ = _time_ms(lambda: rt.mix_ops.mix_pairs_(work, plan), reps=10,
                      warmup=2, device_only=True)
-    bound, by = _bound(4 * pairs * row * 2, 2 * pairs * row)
-    txt = f"[{', '.join(map(str, shape))}] bf16 pairs={pairs}"
+    bound, by = _bound(4 * pairs * row * elem, 2 * pairs * row)
+    txt = f"[{', '.join(map(str, shape))}] {name} pairs={pairs}"
     print(f"gossip_mix vs plain at {txt}: exact; {ms:.4f} ms (plain "
           f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}) | {rt.card}",
           flush=True)
-    return dict(name="gossip_mix", key=(*shape, pairs, "bf16"), shape=txt,
+    key = (*shape, pairs) + (("bf16",) if dtype == torch.bfloat16 else ())
+    return dict(name="gossip_mix", key=key, shape=txt,
                 phase="train_sync_sim", ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, max_abs_err=err, launches=0)
 
@@ -3379,7 +3532,7 @@ def _hold_train_attention(rt, dev, case, seed):
     k, v = (torch.randn((b, sk, hkv, d), generator=g, device=dev).to(
         case["dtype"]) for _ in range(2))
     kw = dict(window=case["window"], softcap=case["softcap"],
-              scale=case["scale"])
+              scale=case["scale"], causal=case.get("causal", True))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     got = torch.autograd.grad(rt.flash_ops.flash_attention(*leaves, **kw),
                               leaves, do)
@@ -3403,7 +3556,7 @@ def _hold_train_attention(rt, dev, case, seed):
     bwd_ms, _ = _time_ms(lambda: rt.flash_ref.attention_bwd(q, k, v, do,
                                                             **kw), reps=5)
     plain_bwd_ms, _ = _time_ms(plain_grad, reps=3)
-    pairs, _keys = _visible(sq, sk, case["window"], 0)
+    pairs, _keys = _visible(sq, sk, case["window"], 0, kw["causal"])
     peak = BF16_OPS_PER_S if case["dtype"] == torch.bfloat16 else \
         FP32_OPS_PER_S
     elem = 2 if case["dtype"] == torch.bfloat16 else 4
@@ -3411,10 +3564,11 @@ def _hold_train_attention(rt, dev, case, seed):
                                        + 4 * b * sk * hkv * d),
                                10 * b * h * pairs * d, peak)
     # the library's forward and backward together (a compiled
-    # flex_attention and its compiled backward), at the standard run's
-    # shapes: the yardstick of K5's forward plus this backward
+    # flex_attention and its compiled backward, or SDPA's), at the
+    # standard runs' shapes and wherever SDPA is the library call: the
+    # yardstick of K5's forward plus this backward
     lib_fb_ms, lib_fb = None, "not measured (the standard run's shapes)"
-    if case["phase"].startswith("train_"):
+    if case["phase"].startswith("train_") or _library_kind(case) == "sdpa":
         try:
             call = _library_attention(rt, q, k, v, case, 0, grad=do)
             lib_fb_ms, _ = _time_ms(call, reps=5, warmup=2)
@@ -3433,52 +3587,52 @@ def _hold_train_attention(rt, dev, case, seed):
     return row
 
 
-def _profile_train_step(rt, cfg, state, batch):
-    """One more train step of the standard run, timed, then again under
-    ``torch.profiler``: the card's busy time and idle share, and its
-    device time in K5 (by kernel name), in the attention backward and in
-    the optimizer (kernels launched inside ranges opened around them
-    here), in the other matmul kernels (by name) and in the rest."""
+def _profile_train_step(rt, cfg, state, batch, lr=TRAIN_LR, ranges=()):
+    """One more train step, timed, then again under ``torch.profiler``:
+    the card's busy time and idle share, and its device time in K5 (by
+    kernel name), in the attention backward, in the optimizer and in each
+    of ``ranges`` ((name, module, attribute): kernels launched inside a
+    range opened around that function here; a backward runs on the
+    autograd engine's thread, outside the range of its forward), in the
+    other matmul kernels (by name) and in the rest."""
     from torch.profiler import (ProfilerActivity, profile,
                                 record_function)
 
-    ops = rt.flash_ops
-    real_bwd = ops.attention_bwd
-    _, opt = rt.steps.make_train_step(cfg, TRAIN_LR)
+    _, opt = rt.steps.make_train_step(cfg, lr)
 
-    def bwd(*a, **kw):
-        with record_function("chip:attention_bwd"):
-            return real_bwd(*a, **kw)
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"chip:{name}"):
+                return fn(*a, **kw)
+        return call
 
-    def update(*a, **kw):
-        with record_function("chip:optimizer"):
-            return opt.update(*a, **kw)
-
+    wrapped = [("attention_bwd", rt.flash_ops, "attention_bwd"), *ranges]
+    real = [getattr(mod, attr) for _n, mod, attr in wrapped]
     plain_wall, _ = _seconds(lambda: _one_step(rt, cfg, state, batch,
                                                opt.update))
-    ops.attention_bwd = bwd
+    for (name, mod, attr), fn in zip(wrapped, real):
+        setattr(mod, attr, ranged(name, fn))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall, _ = _seconds(lambda: _one_step(rt, cfg, state, batch,
-                                                 update))
+            wall, _ = _seconds(lambda: _one_step(
+                rt, cfg, state, batch, ranged("optimizer", opt.update)))
     finally:
-        ops.attention_bwd = real_bwd
+        for (_n, mod, attr), fn in zip(wrapped, real):
+            setattr(mod, attr, fn)
     # the ranges opened here also show as device-side spans: not kernels
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                if e.device_type == cuda and not e.name.startswith("chip:")]
-    ranged = _kernels_by_range(prof)
-    buckets = {
-        "k5": sum(us for n, us in kernels if K5_NAMES.search(n)),
-        "attention_bwd": sum(us for _n, r, us in ranged
-                             if "chip:attention_bwd" in r),
-        "optimizer": sum(us for _n, r, us in ranged
-                         if "chip:optimizer" in r),
-        "matmul_other": sum(us for n, us in kernels
-                            if MATMUL_NAMES.search(n))
-        - sum(us for n, r, us in ranged if "chip:attention_bwd" in r
-              and MATMUL_NAMES.search(n))}
+    in_range = [(n, r, us) for n, r, us in _kernels_by_range(prof)
+                if any(x.startswith("chip:") for x in r)]
+    buckets = {"k5": sum(us for n, us in kernels if K5_NAMES.search(n))}
+    for name in [w[0] for w in wrapped] + ["optimizer"]:
+        buckets[name] = sum(us for _n, r, us in in_range
+                            if f"chip:{name}" in r)
+    buckets["matmul_other"] = (
+        sum(us for n, us in kernels if MATMUL_NAMES.search(n))
+        - sum(us for n, _r, us in in_range if MATMUL_NAMES.search(n)))
     buckets["other"] = sum(us for _n, us in kernels) - sum(buckets.values())
     on_dev = [e for e in prof.key_averages() if e.device_type == cuda
               and not e.key.startswith("chip:")]
@@ -3491,8 +3645,9 @@ def _profile_train_step(rt, cfg, state, batch):
            "kernels": sum(e.count for e in on_dev),
            "top_device_ms": [[e.key[:80], e.self_device_time_total / 1e3,
                               e.count] for e in top]}
-    print(f"profile, gemma2-2b train step B={TRAIN['batch']} S="
-          f"{TRAIN['seq']}: {json.dumps(out)} | {rt.card}", flush=True)
+    print(f"profile, {cfg.name} train step B={batch['tokens'].shape[0]} "
+          f"S={batch['tokens'].shape[1]}: {json.dumps(out)} | {rt.card}",
+          flush=True)
     return out
 
 
@@ -3578,8 +3733,9 @@ def _drive_train(rt, dev, rows):
 def _train_rank(job):
     """One rank of phase d (spawned by ``gossip_sim.launch``): this node's
     params drawn once on the card, then ``train_decentralized`` once per
-    sync spec from a copy of them, the counters set to 0 just before
-    each; returns on rank 0 every rank's log, counts and peak."""
+    sync spec from a copy of them, then xlstm-125m's run
+    (``job["xlstm_argv"]``) from its own draw, the counters set to 0 just
+    before each; returns on rank 0 every rank's log, counts and peak."""
     import torch.distributed as dist
     rt = _Port()
     torch.set_num_threads(2)
@@ -3611,6 +3767,23 @@ def _train_rank(job):
         dist.all_gather_object(every, mine)
         out[sync] = every
         del init, log
+    del host
+    args = rt.train.parse_args(job["xlstm_argv"])
+    cfg = rt.train.config_of(args)
+    seed = rt.train.node_seed(args.seed, args.nodes, mesh.index("data"))
+    init = rt.lm.init_decoder_lm(cfg, torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rt.zero_counts()
+    log = rt.train.train_decentralized(cfg, args, mesh, init_params=init)
+    torch.cuda.synchronize()
+    mine = {"log": dataclasses.replace(log, state=None),
+            "flash_launches": rt.flash_ops.launches,
+            "mix_launches": rt.mix_ops.launches}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["xlstm"] = every
     return out
 
 
@@ -3630,10 +3803,18 @@ def _drive_decentralized(rt, dev, rows):
             str(DEC["steps"]), "--batch", str(DEC["batch"]), "--nodes",
             str(DEC["nodes"]), "--log-every", str(DEC["steps"] - 1),
             "--dist-backend", "gloo"]
+    xlstm_argv = ["--full", "--mode", "decentralized", "--sync",
+                  FDEC["sync"], "--local-steps", str(FDEC["local_steps"]),
+                  "--steps", str(FDEC["steps"]), "--batch",
+                  str(FDEC["batch"]), "--seq", str(FDEC["seq"]), "--nodes",
+                  str(FDEC["nodes"]), "--log-every", str(FDEC["steps"] - 1),
+                  "--dist-backend", "gloo", "--device", "cuda"]
     t0 = time.perf_counter()
     runs = gossip_sim.launch(_train_rank, DEC["nodes"], "gloo",
-                             ({"argv": argv},), timeout_s=DEC_TIMEOUT_S)
+                             ({"argv": argv, "xlstm_argv": xlstm_argv},),
+                             timeout_s=DEC_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
+    xlstm = _xlstm_decentralized(rt, runs.pop("xlstm"))
     per_layer = {kind: sum(1 for i in range(cfg.n_layers)
                            if (i % 2 == 0) == (kind == "local"))
                  for kind in ("local", "global")}
@@ -3689,6 +3870,7 @@ def _drive_decentralized(rt, dev, rows):
               f"{max(out[sync]['peak_mem_gb_per_rank']):.2f} GB a rank | "
               f"{rt.card}", flush=True)
     out["spawn_s"] = spawn_s
+    out["xlstm_125m"] = xlstm
     out["layers"], out["nodes"] = DEC["layers"], DEC["nodes"]
     out["sim"] = _drive_sync_sim(rt, dev, cfg, rows)
     out["card"] = rt.card
@@ -3706,19 +3888,21 @@ def _sim_tree(rt, cfg, dev):
     return stacked
 
 
-def _mix_bf16_rows(rt, dev, cfg):
+def _mix_tree_rows(rt, dev, cfg):
     """Every K1 shape ``sync_tree_sim`` launches over the stacked tree of
-    ``cfg`` (one leaf shape of each kind; DEC["nodes"] / 2 pairs a round),
-    and the one-bf16 path at [20, 5, 51] (a row of 255 elements)."""
+    ``cfg`` (one leaf shape and dtype of each kind; DEC["nodes"] / 2
+    pairs a round), and the one-bf16 path at [20, 5, 51] (a row of 255
+    elements)."""
     one = rt.lm.init_decoder_lm(dataclasses.replace(cfg, n_layers=1),
                                 torch.Generator(device=dev).manual_seed(0))
-    shapes = sorted({(DEC["nodes"], *x.shape)
-                     for x in torch.utils._pytree.tree_leaves(one)})
+    shapes = sorted({((DEC["nodes"], *x.shape), x.dtype)
+                     for x in torch.utils._pytree.tree_leaves(one)},
+                    key=lambda sd: (sd[0], str(sd[1])))
     del one
     torch.cuda.empty_cache()
-    rows = [_hold_mix_bf16(rt, dev, s, DEC["nodes"] // 2, 40 + i)
-            for i, s in enumerate(shapes)]
-    _hold_mix_bf16(rt, dev, (20, 5, 51), 7, 39)
+    rows = [_hold_mix_leaf(rt, dev, s, DEC["nodes"] // 2, 40 + i, dtype)
+            for i, (s, dtype) in enumerate(shapes)]
+    _hold_mix_leaf(rt, dev, (20, 5, 51), 7, 39)
     torch.cuda.empty_cache()
     return rows
 
@@ -3733,7 +3917,8 @@ def _drive_sync_sim(rt, dev, cfg, rows):
     (k,) = rt.dec.rounds_per_axis(spec, (DEC["nodes"],))
     want = {}
     for x in leaves:
-        key = (*x.shape, DEC["nodes"] // 2, "bf16")
+        key = (*x.shape, DEC["nodes"] // 2) + (
+            ("bf16",) if x.dtype == torch.bfloat16 else ())
         want[key] = want.get(key, 0) + k
     torch.cuda.synchronize()
     rt.zero_counts()
@@ -3757,7 +3942,7 @@ def _drive_sync_sim(rt, dev, cfg, rows):
            "launches": sum(got.values()),
            "tree_bytes": nbytes}
     print(f"sync_tree_sim (hypercube, {k} rounds) over a stacked "
-          f"{DEC['nodes']}-node copy ({nbytes / 1e9:.2f} GB bf16): "
+          f"{DEC['nodes']}-node copy ({nbytes / 1e9:.2f} GB): "
           f"{secs:.3f} s, {out['launches']} K1 launches at held shapes, "
           f"nodes equal | {rt.card}", flush=True)
     return out
@@ -3823,7 +4008,416 @@ def _train_trajectory(rt, dev, rows):
     return out
 
 
-def _drive_training(rt, dev):
+def _ftrain_flash_cases(rt):
+    """K5's shapes on the families' training path (bf16, full width):
+    zamba2's shared attention (D=80, "fma"), whisper's encoder (non-
+    causal, Sq=Sk=1,500), decoder self-attention and cross-attention (Sq
+    = S, Sk=1,500, non-causal), pixtral's 256 image tokens and its text
+    (S=512, GQA 4), arctic's (GQA 7); and phase e's float32 whisper smoke
+    shapes (at most 64 query rows a KV head: "decode"). arctic's smoke
+    shape is phase e's granite one."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+
+    def attn(cfg, **kw):
+        return dict(h=cfg.n_heads, hkv=cfg.n_kv, d=cfg.hd,
+                    softcap=cfg.attn_softcap,
+                    scale=cfg.query_scale or cfg.hd ** -0.5,
+                    window=rt.flash_ops.GLOBAL_WINDOW, kind="global",
+                    offsets=(0,), **kw)
+
+    for run in FAMILY_TRAIN:
+        cfg, tag = rt.get_config(run["arch"]), run["tag"]
+        b, s = run["batch"], run["seq"]
+        group = cfg.n_heads // cfg.n_kv
+        base = attn(cfg, b=b, dtype=bf16, tol=3e-2)
+        if cfg.family == "ssm":
+            continue
+        if cfg.family == "encdec":
+            t, nc = cfg.max_source_len, dict(base, causal=False)
+            cases += [
+                dict(nc, phase=f"train_{tag}_encoder", sq=t, sk=t,
+                     variant="wgmma"),
+                dict(base, phase=f"train_{tag}_self", sq=s, sk=s,
+                     variant="wgmma", control="tile"),
+                dict(nc, phase=f"train_{tag}_cross", sq=s, sk=t,
+                     variant="wgmma")]
+            continue
+        n = s + (cfg.n_image_tokens if cfg.family == "vlm" else 0)
+        cases.append(dict(base, phase=f"train_{tag}", sq=n, sk=n,
+                          variant=rt.flash_ops.variant(bf16, n, cfg.hd,
+                                                       group),
+                          control="tile"))
+    for run in TRAJ_FAMILIES:
+        if run["frames"] is None:
+            continue
+        smoke = rt.smoke(rt.get_config(run["arch"]))
+        base = attn(smoke, b=TRAJ["batch"], dtype=f32, tol=2e-5,
+                    control="bf16")
+        t, s = run["frames"], TRAJ["seq"]
+        for phase, sq, sk, causal in (("encoder", t, t, False),
+                                      ("self", s, s, True),
+                                      ("cross", s, t, False)):
+            cases.append(dict(
+                base, phase=f"traj_whisper_{phase}", sq=sq, sk=sk,
+                causal=causal, variant=rt.flash_ops.variant(
+                    f32, sq, smoke.hd, smoke.n_heads // smoke.n_kv)))
+    return cases
+
+
+def _ftrain_layers(cfg, tag):
+    """(attention calls a step, forward launches a call) by phase: remat
+    "full" runs each rematted attention's forward again in the backward;
+    zamba2's shared block is applied outside remat, as in the
+    reference."""
+    per = 2 if cfg.remat and cfg.remat_policy != "none" else 1
+    if cfg.family == "encdec":
+        return {f"train_{tag}_encoder": (cfg.n_encoder_layers, per),
+                f"train_{tag}_self": (cfg.n_layers, per),
+                f"train_{tag}_cross": (cfg.n_layers, per)}
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        return {f"train_{tag}": (_attention_layers(cfg), 1)}
+    return {f"train_{tag}": (cfg.n_layers, per)}
+
+
+def _family_batches(rt, cfg, run, dev):
+    """The run's batches: ``TokenPipeline`` tokens, targets and mask on
+    the card, with whisper's stub frames and pixtral's stub image
+    embeddings (drawn on the CPU from the seed, moved)."""
+    cpu = torch.Generator().manual_seed(1)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = rt.frontends.audio_frames_stub(
+            cfg, cpu, run["batch"], device=dev)
+    if cfg.family == "vlm":
+        extra["image_embeds"] = rt.frontends.image_patches_stub(
+            cfg, cpu, run["batch"], device=dev)
+    for batch in rt.pipeline(cfg.vocab_size, run["seq"], run["batch"],
+                             seed=0).batches(dev):
+        yield dict(batch._asdict(), **extra)
+
+
+def _train_family(rt, dev, run, rows):
+    """One family trained at full width: xlstm through ``launch.train.main``
+    (no ``--arch``: the default), the rest through
+    ``steps.make_train_step`` on weights drawn on the card; K5 counted by
+    shape and variant; every loss and grad norm finite. Returns its
+    numbers: s/step (steps 2 on), tokens/s, peak memory, the losses."""
+    cfg, tag = _family_cfg(rt, run), run["tag"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt.zero_counts()
+    draw_s = None
+    if tag == "xlstm":
+        if rt.train.parse_args([]).arch != run["arch"]:
+            raise AssertionError("launch.train's default arch is not "
+                                 "xlstm-125m")
+        log = rt.train.main(["--full", "--batch", str(run["batch"]),
+                             "--seq", str(run["seq"]), "--steps",
+                             str(run["steps"]), "--lr", repr(FTRAIN_LR),
+                             "--log-every", "1", "--device", "cuda"])
+        losses, norms, secs = log.losses, log.grad_norms, log.step_seconds
+        peak, state = log.peak_bytes[0], log.state
+    else:
+        params, draw_s = _family_params(rt, cfg, 0, dev)
+        step, opt = rt.steps.make_train_step(cfg, FTRAIN_LR)
+        state = rt.steps.TrainState(params, opt.init(params), 0)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, secs = [], [], []
+        for _, batch in zip(range(run["steps"]),
+                            _family_batches(rt, cfg, run, dev)):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))          # drains the card
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)   # lint: allow(timer-no-barrier)
+        peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    layers = _ftrain_layers(cfg, tag)
+    want = {ph: n * per * run["steps"] for ph, (n, per) in layers.items()}
+    _lm_counts(rt, rows, f"{tag} train", want)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))):
+        raise AssertionError(f"{cfg.name} train: losses {losses}, grad "
+                             f"norms {norms}: not finite")
+    steady = statistics.mean(secs[1:])
+    text = run["batch"] * run["seq"]
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    by_phase = {r["phase"]: r for r in rows}
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "optimizer": cfg.optimizer,
+           "remat": cfg.remat_policy if cfg.remat else "off",
+           "batch": run["batch"], "seq": run["seq"], "steps": run["steps"],
+           "image_tokens": n_img, "lr": FTRAIN_LR,
+           "route": "launch.train.main" if tag == "xlstm"
+           else "steps.make_train_step",
+           "losses": losses, "grad_norms": norms,
+           "first_step_s": secs[0], "s_per_step": steady,
+           "tokens_per_s": text / steady,
+           "tokens_per_s_with_images": (text + run["batch"] * n_img)
+           / steady,
+           "peak_mem_gb": peak / 1e9, "weight_draw_s": draw_s,
+           "k5_launches": want,
+           "k5_fwd_ms_per_step": sum(by_phase[ph]["ms"] * n * per for ph,
+                                     (n, per) in layers.items()),
+           "k5_bwd_ms_per_step": sum(by_phase[ph]["bwd_ms"] * n for ph,
+                                     (n, _per) in layers.items()),
+           "card": rt.card}
+    print(f"{cfg.name} train ({cfg.n_layers} layers, {out['route']}, "
+          f"{cfg.optimizer}) B={run['batch']} S={run['seq']}"
+          f"{f' + {n_img} image tokens' if n_img else ''}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {steady:.3f} s/step "
+          f"({out['tokens_per_s']:.0f} tok/s; first step {secs[0]:.2f} s), "
+          f"peak {out['peak_mem_gb']:.2f} GB, K5 launches {want} | "
+          f"{rt.card}", flush=True)
+    return out, state
+
+
+def _xlstm_decentralized(rt, ranks):
+    """xlstm-125m (whole, the default arch) in ``train_decentralized``,
+    run by phase d's ranks after gemma2-2b's (``_train_rank``):
+    FDEC["nodes"] gloo ranks sharing the card, exact hypercube: the loss
+    finite on every rank, the spread 0 after the last sync, no K5 (no
+    attention) and no K1 (no pair inside a rank); s/step, a sync's
+    seconds and bytes, peak memory a rank."""
+    log = ranks[0]["log"]
+    for r, mine in enumerate(ranks):
+        if mine["mix_launches"] or mine["flash_launches"]:
+            raise AssertionError(f"xlstm decentralized: rank {r} launched "
+                                 f"K1 {mine['mix_launches']} / K5 "
+                                 f"{mine['flash_launches']} times")
+        if not all(np.isfinite(mine["log"].losses)):
+            raise AssertionError(f"xlstm decentralized: rank {r} losses "
+                                 f"{mine['log'].losses}")
+    spreads = [sp for _t, sp in log.spreads]
+    if spreads[-1] != 0.0:
+        raise AssertionError(f"xlstm decentralized: spread {log.spreads} "
+                             f"after an exact hypercube")
+    steady = statistics.mean(log.step_seconds[1:])
+    out = {"arch": "xlstm_125m", "nodes": FDEC["nodes"],
+           "sync": FDEC["sync"], "local_steps": FDEC["local_steps"],
+           "batch": FDEC["batch"], "seq": FDEC["seq"],
+           "losses": log.losses, "spreads": log.spreads,
+           "s_per_step": steady,
+           "tokens_per_s": log.tokens_per_step / steady,
+           "sync_s": statistics.mean(log.sync_seconds),
+           "sync_bytes_per_rank": log.sync_bytes,
+           "collective_bytes_per_sync": log.napkin_bytes,
+           "param_bytes": log.param_bytes,
+           "peak_mem_gb_per_rank": [p / 1e9 for p in log.peak_bytes],
+           "card": rt.card}
+    print(f"xlstm-125m decentralized ({FDEC['sync']}, {FDEC['nodes']} gloo "
+          f"ranks): loss {log.losses[0]:.4f} -> {log.losses[-1]:.4f}, "
+          f"spread {log.spreads}, {steady:.2f} s/step "
+          f"({out['tokens_per_s']:.0f} tok/s over the nodes), sync "
+          f"{out['sync_s']:.3f} s ({log.sync_bytes / 1e9:.3f} GB a rank), "
+          f"peak {max(out['peak_mem_gb_per_rank']):.2f} GB a rank | "
+          f"{rt.card}", flush=True)
+    return out
+
+
+def _adafactor_scale(g):
+    """Adafactor's first-step denominator of each element,
+    ``sqrt(r_i c_j / mean r)`` over a leaf's last two axes (``|g|`` for a
+    vector), in float64 (``tests/test_torch_train_families.py``)."""
+    g = np.asarray(g, np.float64)
+    if g.ndim < 2:
+        return np.abs(g)
+    g2 = g * g + 1e-30
+    vr, vc = g2.mean(-1), g2.mean(-2)
+    return np.sqrt(vr[..., None] * vc[..., None, :]
+                   / vr.mean(-1)[..., None, None])
+
+
+def _gate_params(cfg, got, want, grads, lrs):
+    """The card's parameter leaves ``got`` against the CPU's ``want``
+    after steps at learning rates ``lrs``, with the bound of
+    ``tests/test_torch_train_families.py::_assert_params_close`` summed
+    over the steps (``grads``: the CPU's gradient leaves at each step).
+    Every element within 2 lr a step (neither optimizer moves one by more
+    than about lr); an element whose gradient is 0 at every step (the ssm
+    family's idle block, a token no batch holds) moves by its weight decay
+    alone on both sides, within 1e-6 of its leaf's max |p|; a leaf whose
+    max |g| is below 1e-6 of the tree's at some step is rounding noise as
+    a whole (whisper's key biases without
+    RoPE, about 1e-8: the softmax cancels them) and gets only this.
+    AdamW: where the gradient is resolved at every step (at least
+    ``GRAD_REL`` of its leaf's max |g|), PR 23's bound: within a tenth of
+    the summed lr, at most 1e-4 of a leaf's resolved elements beyond
+    1e-6 (elsewhere the gradient is rounding noise, which AdamW's
+    sign-like steps move by up to lr either way). Adafactor (one step):
+    within ``4 lr delta / scale`` of each element, ``delta`` ``GRAD_REL``
+    of the leaf's max |g|. Returns each bound's worst share."""
+    lr_sum = sum(lrs)
+    worst = {"all": 0.0, "zero": 0.0, "resolved": 0.0, "share": 0.0}
+    tops = [max(float(np.abs(x).max()) for x in g) for g in grads]
+    for i, (a, b) in enumerate(zip(got, want)):
+        d = np.abs(a - b)
+        worst["all"] = max(worst["all"], float(d.max()) / (2 * lr_sum))
+        zero = np.logical_and.reduce([g[i] == 0 for g in grads])
+        if zero.any():
+            worst["zero"] = max(worst["zero"], float(d[zero].max()) / (
+                1e-6 * max(float(np.abs(b).max()), 1e-30)))
+        if any(np.abs(g[i]).max() < 1e-6 * top
+               for g, top in zip(grads, tops)):
+            continue
+        if cfg.optimizer == "adafactor":
+            g = grads[0][i]
+            delta = GRAD_REL * np.abs(g).max()
+            over = d / (lrs[0] * delta / (_adafactor_scale(g) + 1e-30))
+            worst["resolved"] = max(worst["resolved"], float(over.max()) / 4)
+            continue
+        resolved = np.logical_and.reduce(
+            [np.abs(g[i]) >= GRAD_REL * np.abs(g[i]).max() for g in grads])
+        d = d[resolved]
+        if d.size:
+            worst["resolved"] = max(worst["resolved"],
+                                    float(d.max()) / (0.1 * lr_sum))
+            worst["share"] = max(worst["share"],
+                                 float((d > 1e-6).mean()) / 1e-4)
+    if not (worst["all"] <= 1 and worst["zero"] <= 1
+            and worst["resolved"] < 1 and worst["share"] <= 1):
+        raise AssertionError(f"trajectory {cfg.name} ({cfg.optimizer}): "
+                             f"parameters beyond the bound, each bound's "
+                             f"worst share {worst}")
+    return worst
+
+
+def _family_trajectory(rt, dev, rows):
+    """Phase e for TRAJ_FAMILIES: each smoke variant in float32, its
+    steps of its optimizer on the card and on the CPU (the plain
+    versions) from the same params and batches (drawn on the CPU):
+    losses rtol 1e-5, the parameters gated by ``_gate_params`` against
+    the CPU's gradients; arctic's Adafactor step on the card in pieces of
+    one expert matrix (``optimizers.CHUNK`` cut), the pieces counted. K5
+    counted (arctic's smoke shape onto phase e's granite row, among
+    ``rows``)."""
+    from repro_torch.optim import optimizers
+    real_chunk, real_pieces = optimizers.CHUNK, optimizers._matrix_pieces
+    out = {}
+    rt.zero_counts()
+    for run in TRAJ_FAMILIES:
+        cfg = rt.smoke(rt.get_config(run["arch"]))
+        res, grads, pieces = {}, [], []
+
+        def counted(*a):
+            for piece in real_pieces(*a):
+                pieces.append(tuple(piece[0].shape))
+                yield piece
+        for side, where in (("cpu", torch.device("cpu")), ("card", dev)):
+            cpu = torch.Generator().manual_seed(0)
+            params = (rt.encdec.init_encdec(cfg, cpu, device=where)
+                      if cfg.family == "encdec"
+                      else rt.lm.init_decoder_lm(cfg, cpu, device=where))
+            frames = (rt.frontends.audio_frames_stub(
+                cfg, torch.Generator().manual_seed(1), TRAJ["batch"],
+                run["frames"], device=where) if run["frames"] else None)
+            step, opt = rt.steps.make_train_step(cfg, TRAJ_LR)
+            state = rt.steps.TrainState(params, opt.init(params), 0)
+            it = rt.pipeline(cfg.vocab_size, TRAJ["seq"], TRAJ["batch"],
+                             seed=0).batches(where)
+            if side == "card" and run.get("chunk"):
+                optimizers.CHUNK = run["chunk"]
+                optimizers._matrix_pieces = counted
+            losses = []
+            try:
+                for _ in range(run["steps"]):
+                    batch = next(it)._asdict()
+                    if frames is not None:
+                        batch["frames"] = frames
+                    if side == "cpu":
+                        _, g = rt.steps.value_and_grad(
+                            lambda p: rt.steps.loss_fn(cfg, p, batch),
+                            state.params)
+                        grads.append(torch.utils._pytree.tree_leaves(
+                            rt.convert.decoder_lm_to_numpy(g)))
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+            finally:
+                optimizers.CHUNK = real_chunk
+                optimizers._matrix_pieces = real_pieces
+            res[side] = (losses, torch.utils._pytree.tree_leaves(
+                rt.convert.decoder_lm_to_numpy(state.params)))
+        (cl, cp), (gl, gp) = res["cpu"], res["card"]
+        loss_rel = float(np.max(np.abs(np.array(gl) - cl) / np.abs(cl)))
+        if not loss_rel <= 1e-5:
+            raise AssertionError(f"trajectory {cfg.name}: card vs CPU loss "
+                                 f"rel {loss_rel} > 1e-5")
+        if run.get("chunk"):
+            n_moe = cfg.n_layers - cfg.first_dense_layers
+            d, f = cfg.d_model, cfg.moe_d_ff
+            expert = pieces.count((1, d, f)) + pieces.count((1, f, d))
+            if not (expert >= 3 * cfg.n_experts * n_moe
+                    and cfg.n_experts * d * f > run["chunk"]):
+                raise AssertionError(f"trajectory {cfg.name}: {expert} "
+                                     f"expert pieces, not one a matrix")
+        lrs = [float(rt.schedule("cosine", TRAJ_LR)(t))
+               for t in range(run["steps"])]
+        worst = max(float(np.abs(a - b).max()) for a, b in zip(gp, cp))
+        gate = _gate_params(cfg, gp, cp, grads, lrs)
+        out[run["arch"]] = {"losses_cuda": gl, "losses_cpu": cl,
+                            "loss_rel": loss_rel, "param_max_diff": worst,
+                            "bound_shares": gate, "steps": run["steps"],
+                            "optimizer": cfg.optimizer,
+                            "pieces": len(pieces) or None}
+        print(f"trajectory {cfg.name} f32 {cfg.optimizer}, {run['steps']} "
+              f"steps{f' ({len(pieces)} pieces)' if pieces else ''}: card "
+              f"vs CPU loss rel {loss_rel:.3g} (1e-5), params max "
+              f"{worst:.3g}, each bound's worst share {gate}", flush=True)
+    want = {}
+    for run in TRAJ_FAMILIES:
+        smoke = rt.smoke(rt.get_config(run["arch"]))
+        n = smoke.n_layers * run["steps"]
+        if run["frames"]:
+            want.update({f"traj_whisper_{ph}": n
+                         for ph in ("encoder", "self", "cross")})
+        elif smoke.family != "ssm":
+            want["traj_f32"] = want.get("traj_f32", 0) + n
+    _lm_counts(rt, rows, "families trajectory", want)
+    return out
+
+
+def _drive_family_training(rt, dev, lap, traj_rows):
+    """Phase f: K5 and its gradient held at every new training shape,
+    then each run of FAMILY_TRAIN (a zamba2 step profiled),
+    ``sync_tree_sim`` through K1 over a stacked 4-node xlstm tree, and
+    phase e's float32 trajectory for TRAJ_FAMILIES (xlstm's
+    decentralized run is phase d's; ``traj_rows`` phase e's K5 row,
+    which arctic's smoke shape shares).
+    Returns (the numbers, K5 rows, K1 rows)."""
+    t0 = time.perf_counter()
+    k5_rows = [_hold_train_attention(rt, dev, c, 600 + i)
+               for i, c in enumerate(_ftrain_flash_cases(rt))]
+    torch.cuda.empty_cache()
+    lap("families' training K5 holds")
+    out = {}
+    for run in FAMILY_TRAIN:
+        out[run["tag"]], state = _train_family(rt, dev, run, k5_rows)
+        if run["tag"] == "zamba2":
+            cfg = _family_cfg(rt, run)
+            batch = next(_family_batches(rt, cfg, run, dev))
+            from repro_torch.models import mamba2
+            out["zamba2"]["profile"] = _profile_train_step(
+                rt, cfg, state, batch, FTRAIN_LR,
+                ranges=(("mamba2", mamba2, "apply_mamba2"),))
+        del state
+        torch.cuda.empty_cache()
+        lap(f"{run['tag']} training")
+    xcfg = rt.get_config("xlstm_125m")
+    k1_rows = _mix_tree_rows(rt, dev, xcfg)
+    out["xlstm_sync_sim"] = _drive_sync_sim(rt, dev, xcfg, k1_rows)
+    lap("xlstm sync_tree_sim")
+    out["trajectory"] = _family_trajectory(rt, dev, k5_rows + traj_rows)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = rt.card
+    return out, k5_rows, k1_rows
+
+
+def _drive_training(rt, dev, lap):
     """The training slice (6a, a-e): K1 in bf16 and K5 with its gradient
     held at every
     shape of the training path, then the standard run, the decentralized
@@ -3832,12 +4426,15 @@ def _drive_training(rt, dev):
     t0 = time.perf_counter()
     dec_cfg = dataclasses.replace(rt.get_config(TRAIN["arch"]),
                                   n_layers=DEC["layers"])
-    k1_rows = _mix_bf16_rows(rt, dev, dec_cfg)
+    k1_rows = _mix_tree_rows(rt, dev, dec_cfg)
     k5_rows = [_hold_train_attention(rt, dev, c, 200 + i)
                for i, c in enumerate(_train_flash_cases(rt))]
     torch.cuda.empty_cache()
+    lap("training K1 and K5 holds")
     out = {"standard": _drive_train(rt, dev, k5_rows)}
+    lap("gemma2-2b standard training")
     out["decentralized"] = _drive_decentralized(rt, dev, k5_rows + k1_rows)
+    lap("decentralized training")
     out["trajectory"] = _train_trajectory(rt, dev, k5_rows)
     out["seconds"] = time.perf_counter() - t0
     out.update(card=rt.card, k1_rows=k1_rows, k5_rows=k5_rows)
@@ -4009,6 +4606,7 @@ def main() -> int:
     mix_rows = [r for r in full_rows if r["name"] == "gossip_mix"]
     z_rows, zipf = _drive_zipf(rt, dev, mix_rows)
     torch.cuda.empty_cache()
+    lap("unique-token full width")
     b_rows, bench = _drive_sparse_bench(rt, dev)
     torch.cuda.empty_cache()
     lap("unique layout")
@@ -4019,6 +4617,7 @@ def main() -> int:
     scale = {"sim": _drive_scale_sim(rt, dev, full_rows, *full_inputs)}
     del full_inputs
     torch.cuda.empty_cache()
+    lap("vocab_shards=4")
     mesh_rows, scale["mesh"] = _drive_mesh(rt, dev)
     torch.cuda.empty_cache()
     lap("Scale layer")
@@ -4039,12 +4638,19 @@ def main() -> int:
 
     # phase 8 (the docstring's 6a): the training slice (PR 23), every new
     # shape held first
-    training = _drive_training(rt, dev)
-    lm_rows += training.pop("k5_rows")
+    training = _drive_training(rt, dev, lap)
+    train_k5 = training.pop("k5_rows")
+    lm_rows += train_k5
     lap("training")
+    # phase 8f: the families' training, every new shape held first
+    fam_train, ft_k5, ft_k1 = _drive_family_training(
+        rt, dev, lap, [r for r in train_k5 if r["phase"] == "traj_f32"])
+    lm_rows += ft_k5
+    torch.cuda.empty_cache()
+    lap("families' training")
     _library_warmer_state(warmer, t_start, stop=True)
     all_rows = (rows + d_rows + s_rows + z_rows + b_rows + mesh_rows
-                + lm_rows + training.pop("k1_rows"))
+                + lm_rows + training.pop("k1_rows") + ft_k1)
     for row in all_rows:
         if row["launches"] < 1:
             raise AssertionError(f"held shape {row['shape']} "
@@ -4081,6 +4687,7 @@ def main() -> int:
     print(json.dumps({"scenarios": scen}))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"families_training": fam_train}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ LayerNorm; the frontend adds the positions. Decoder: learned positions
 attention over the encoder memory and the MLP. Decode carries a KV cache
 per layer for the self-attention and each layer's cross K/V, computed
 once per utterance by ``init_encdec_caches``. Every attention goes
-through the ``flash_attention`` kernel. Layer stacks are lists of
-per-layer dicts (``encoder``, ``decoder``), run by Python loops.
-``encdec_loss`` waits with the other families' training.
+through the ``flash_attention`` kernel, whose gradient reaches the
+encoder through every cross-attention's K and V. Layer stacks are lists
+of per-layer dicts (``encoder``, ``decoder``), run by Python loops.
+``encdec_loss`` is the training objective.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from repro_torch.models.transformer import (ForwardOutput, _apply_mlp,
                                             _norm_init, _put)
 
 __all__ = ["init_encdec", "encode", "forward_encdec", "EncDecCaches",
-           "init_encdec_caches", "decode_step_encdec"]
+           "init_encdec_caches", "decode_step_encdec", "encdec_loss"]
 
 
 def _init_enc_layer(cfg: ModelConfig, gen, dtype) -> dict:
@@ -171,3 +172,13 @@ def decode_step_encdec(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                              cross=caches.cross),
                          aux_loss=torch.zeros((), dtype=torch.float32,
                                               device=x.device))
+
+
+def encdec_loss(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of the teacher-forced decoder:
+    float32 log-softmax, masked mean over ``batch["mask"]``."""
+    out = forward_encdec(cfg, params, batch["tokens"], batch["frames"])
+    logp = torch.log_softmax(out.logits.float(), dim=-1)
+    ll = logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    maskf = batch["mask"].float()
+    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)

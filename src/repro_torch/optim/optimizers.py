@@ -16,7 +16,18 @@ update each layer's slice (a view of the stacked state) in chunks of
 ``CHUNK`` elements, which bounds their float32 temporaries. Adafactor is
 not: it factors the second moment of a stacked leaf over its last two
 axes (a ``[L, d]`` norm scale over (L, d)) and clips by the RMS of the
-whole stacked leaf, so it stacks each layer leaf for its update.
+whole stacked leaf. Where a layer's tensor is itself a matrix (or a
+stack of them, an expert leaf ``[E, d, f]``), the factors belong to each
+matrix, so it updates the leaf in two passes over pieces of whole
+matrices, at most ``CHUNK`` elements a piece where a matrix is smaller:
+the first updates the factors and sums the squared update, the second
+writes it clipped by the RMS of the whole leaf. A leaf of at most
+``CHUNK`` elements keeps its update from the first pass; a larger one
+computes it again a piece at a time, so its float32 temporaries are a
+piece's, not the leaf's (a float32 copy of one arctic expert leaf is
+17.9 GB). Only the order of the RMS's sum differs from one stacked
+reduction. A ``[L, d]`` stack of vectors is one piece, stacked; a
+vector leaf (unfactored) is stacked for the update.
 
 In place. ``update`` writes the new values into the given parameter and
 state tensors and returns those same trees (the reference returns new
@@ -26,6 +37,7 @@ are read only.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -108,6 +120,42 @@ def _pieces(p, g, *state):
             yield tuple(f[a:a + CHUNK] for f in flat)
 
 
+def _leaf_matrices(leaf) -> bool:
+    """Whether each matrix of the stacked leaf is a layer's own (its
+    last two axes are not the layer axis)."""
+    return not isinstance(leaf, list) or leaf[0].dim() >= 2
+
+
+def _matrix_pieces(p, g, vr, vc):
+    """Aligned pieces ``(param, grad, vr, vc)`` of a factored leaf whose
+    matrices are each a layer's own: ``[m, r, c]`` views of ``m`` whole
+    matrices (``m`` the most that fit in ``CHUNK`` elements, at least
+    one), with their ``[m, r]`` / ``[m, c]`` factors, layer by layer."""
+    if isinstance(p, list):
+        items = [(p[i], g[i], vr[i], vc[i]) for i in range(len(p))]
+    else:
+        items = [(p, g, vr, vc)]
+    for param, grad, r_, c_ in items:
+        rows, cols = param.shape[-2:]
+        pm = param.view(-1, rows, cols)
+        gm = grad.reshape(-1, rows, cols)
+        rm, cm = r_.view(-1, rows), c_.view(-1, cols)
+        m = max(1, CHUNK // (rows * cols))
+        for a in range(0, pm.shape[0], m):
+            yield pm[a:a + m], gm[a:a + m], rm[a:a + m], cm[a:a + m]
+
+
+def _factored_pieces(p, g, vr, vc):
+    """The pieces of a factored leaf: ``_matrix_pieces`` where each
+    matrix is a layer's own; else (a ``[L, d]`` stack of vectors, the
+    layer axis one of the matrix's) the stacked leaf as one piece, a copy
+    that the update writes back."""
+    if _leaf_matrices(p):
+        yield from _matrix_pieces(p, g, vr, vc)
+    else:
+        yield _stack(p), _stack(g), vr, vc
+
+
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x).detach().cpu().to(torch.float32)
 
@@ -186,24 +234,45 @@ def adafactor(lr_fn, eps: float = 1e-30, clip_threshold: float = 1.0,
         beta2, one_minus = float(beta2_t), float(1 - beta2_t)
         lr = float(lr_fn(step))
 
+        def factored_u(g, vr, vc):
+            denom = (vr[..., None] * vc[..., None, :]
+                     / torch.clamp(vr.mean(-1)[..., None, None], min=eps))
+            return g * torch.rsqrt(denom + eps)
+
+        def clip_scale(sum_sq, n):
+            rms = torch.sqrt((sum_sq / n).float() + eps)
+            return torch.clamp(rms / clip_threshold, min=1.0)
+
+        def upd_factored(p, g, s):
+            pieces = list(_factored_pieces(p, g, s["vr"], s["vc"]))
+            keep = math.prod(_shape(p)) <= CHUNK
+            n, sum_sq, kept = 0, 0.0, []
+            for _pc, gc, rc, cc in pieces:
+                g32 = gc.float()
+                g2 = g32 * g32 + eps
+                rc.copy_(beta2 * rc + one_minus * g2.mean(-1))
+                cc.copy_(beta2 * cc + one_minus * g2.mean(-2))
+                u = factored_u(g32, rc, cc)
+                sum_sq = sum_sq + (u * u).sum(dtype=torch.float64)
+                n += u.numel()
+                kept.append(u if keep else None)
+            scale = clip_scale(sum_sq, n)
+            for (pc, gc, rc, cc), u in zip(pieces, kept):
+                if u is None:
+                    u = factored_u(gc.float(), rc, cc)
+                p32 = pc.float()
+                pc.copy_(p32 - lr * (u / scale + weight_decay * p32))
+            if not _leaf_matrices(p):
+                _write(p, pieces[0][0])
+
         def upd(p, g, s):
+            if _factored(_shape(p)):
+                return upd_factored(p, g, s)
             g = _stack(g).float()
-            g2 = g * g + eps
-            if _factored(g.shape):
-                vr = beta2 * s["vr"] + one_minus * g2.mean(-1)
-                vc = beta2 * s["vc"] + one_minus * g2.mean(-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(-1)[..., None, None],
-                                       min=eps))
-                u = g * torch.rsqrt(denom + eps)
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
-            else:
-                v = beta2 * s["v"] + one_minus * g2
-                u = g * torch.rsqrt(v + eps)
-                s["v"].copy_(v)
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            v = beta2 * s["v"] + one_minus * (g * g + eps)
+            u = g * torch.rsqrt(v + eps)
+            s["v"].copy_(v)
+            u = u / clip_scale(torch.sum(u * u), u.numel())
             p32 = _stack(p).float()
             _write(p, p32 - lr * (u + weight_decay * p32))
 

@@ -3,9 +3,10 @@
 Entry points run on CUDA unless the caller asks for the CPU, and raise
 without a GPU; the port and ``chip_smoke.py`` import neither ``jax`` nor
 ``repro``; the package imports with no ``triton`` and no ``nvcc``. The
-kernels' agreement with their plain versions needs the card and is held
-by ``chip_smoke.py`` and by the tests here that take ``cuda_device``,
-which skip without one.
+kernels' agreement with their plain versions (K5's gradient at the
+families' training shapes and their training steps among them) needs
+the card and is held by ``chip_smoke.py`` and by the tests here that
+take ``cuda_device``, which skip without one.
 """
 
 import ast
@@ -612,6 +613,102 @@ def test_flash_attention_matches_plain_on_card(cuda_device, case):
     err = (got.double() - want.double()).pow(2).mean(-1).sqrt()
     size = want.double().pow(2).mean(-1).sqrt().clamp_min(1e-6)
     assert float((err / size).max()) <= FLASH_ROW_TOL[dtype]
+
+
+# K5's gradient at the families' training shapes, cut in length: whisper's
+# non-causal cross-attention (Sq != Sk) and encoder, zamba2's head_dim 80
+FLASH_GRAD_CASES = [
+    (2, 64, 300, 12, 12, 64, {"causal": False}, torch.bfloat16),
+    (2, 300, 300, 12, 12, 64, {"causal": False}, torch.bfloat16),
+    (2, 130, 130, 8, 8, 80, {}, torch.bfloat16),
+    (1, 100, 150, 4, 4, 64, {"causal": False}, torch.float32),
+    (1, 130, 130, 4, 2, 80, {"softcap": 30.0, "window": 40},
+     torch.float32),
+]
+# of each gradient tensor's max (chip_smoke.BWD_TOL): both sides compute
+# in float32 from the same inputs; bf16 adds one rounding of the result
+FLASH_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+
+
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES,
+                         ids=[f"grad{i}" for i in
+                              range(len(FLASH_GRAD_CASES))])
+def test_flash_attention_gradient_matches_autograd_of_plain_on_card(
+        cuda_device, case):
+    """dQ, dK, dV through the kernel's autograd function against
+    ``torch.autograd.grad`` of the plain version on the same inputs and
+    output gradient, each within ``FLASH_BWD_TOL`` of that tensor's max;
+    the forward launched once, counted."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, sk, h, hkv, d, kw, dtype = case
+    rng = np.random.default_rng(sq * sk + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                   .to(cuda_device, dtype)
+                   for s in ((b, sq, h, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d), (b, sq, h, d)))
+    before = flash_ops.launches
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(flash_ops.flash_attention(*leaves, **kw),
+                              leaves, do)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    plain = [x.clone().float().requires_grad_() for x in (q, k, v)]
+    out = attention_ref(*(x.transpose(1, 2).reshape(-1, x.shape[1], d)
+                          for x in plain), **kw)
+    want = torch.autograd.grad(out.reshape(b, h, sq, d).transpose(1, 2),
+                               plain, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        err = (g.float() - w).abs().max() / w.abs().max()
+        assert float(err) <= FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_125m",
+                                  "whisper_small", "kimi_k2_1t_a32b"])
+def test_family_train_step_on_card_matches_cpu(cuda_device, arch):
+    """Two steps of ``steps.make_train_step`` at the family's smoke
+    variant in float32 on the card and on the CPU from the same params
+    and batches (whisper with 48 stub frames): losses rtol 1e-5
+    (``test_train_step_on_card_matches_cpu``'s bound); K5 launched once
+    an attention a step on the card (no remat at the smoke width)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data.lm_pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import frontends as fe
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_variant(get_config(arch))
+    per_step = (cfg.n_encoder_layers + 2 * cfg.n_layers
+                if cfg.family == "encdec"
+                else cfg.n_layers // cfg.attn_every
+                if cfg.family == "hybrid"
+                else 0 if cfg.family == "ssm" else cfg.n_layers)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        gen = torch.Generator().manual_seed(0)
+        params = (ed.init_encdec(cfg, gen, device=dev)
+                  if cfg.family == "encdec"
+                  else tf.init_decoder_lm(cfg, gen, device=dev))
+        extra = ({"frames": fe.audio_frames_stub(
+            cfg, torch.Generator().manual_seed(1), 2, 48, device=dev)}
+            if cfg.family == "encdec" else {})
+        step, opt = steps.make_train_step(cfg, 1e-2)
+        state = steps.TrainState(params, opt.init(params), 0)
+        it = TokenPipeline(cfg.vocab_size, 64, 2, seed=0).batches(dev)
+        before = flash_ops.launches
+        losses[str(dev)] = []
+        for _ in range(2):
+            state, m = step(state, dict(next(it)._asdict(), **extra))
+            losses[str(dev)].append(float(m["loss"]))
+        launched = flash_ops.launches - before
+        assert launched == (0 if dev == "cpu" else 2 * per_step)
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=1e-5)
 
 
 FAMILY_ARCHS = ["kimi_k2_1t_a32b", "arctic_480b", "zamba2_2p7b",

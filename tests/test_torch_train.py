@@ -258,7 +258,8 @@ def standard_runs(tmp_path_factory):
                  0)
         ref_losses = ref_train.train_standard(
             ref_cfg, _ref_args(tmp, ckpt=ref_ckpt), ref_host_mesh())
-    log = train.main(["--device", "cpu", "--steps", "3", "--batch", "2",
+    log = train.main(["--device", "cpu", "--arch", "granite_3_8b",
+                      "--steps", "3", "--batch", "2",
                       "--seq", "16", "--lr", "1e-2", "--init-from", init,
                       "--ckpt", port_ckpt])
     return dict(ref_losses=ref_losses, log=log, ref_ckpt=ref_ckpt,
