@@ -142,7 +142,9 @@
    each node-device's count of intra-rank pairs) and held first; the
    ranks' launches by shape, summed, must equal it. Prints rounds/s, the
    wire bytes a round (``MeshComm.bytes_per_round``) and peak memory a
-   rank.
+   rank. The full-width runs go through ``analysis.collectives.Recorder``
+   (their timed windows include its wrappers), and their calls are
+   audited (step 6c).
 6. The LM slice (the port's fourth): gemma2-2b at full width (d=2304,
    vocab 256,000, random bf16 weights from seed 0), its 26 layers cut
    to 8 (``LM``). ``flash_attention``
@@ -259,6 +261,27 @@
       losses rtol 1e-5, the parameters within the CPU tests' split
       bound (``_gate_params``), K5 at whisper's smoke shapes held with
       SDPA's forward and backward beside it.
+6c. The analysis layer (slice 15, ``repro_torch.analysis``): the
+   single-process rows of ``trace_audit.ENTRY_POINTS`` at the
+   reference's audit sizes with the kernels on (K1 and K2 in the DELEDA
+   segments, K3 in ``eval_chunk`` and ``serve_slab_ll``, K2 in
+   ``serve_slab_mixture``, each checked launched), their temp bytes read
+   by the caching allocator's peak against the reference's budgets, and a
+   planted dense [K, V] beta that must fail ``temp-budget``; the mesh
+   rows (and a planted doc-shaped all_gather that must fail the
+   allow-list and the privacy rule) recorded in the 2 x 2 grid's gloo
+   ranks of step 5a, where the full-width runs' calls are audited too
+   (``_audit_mesh``: no doc-shaped integer payload; the grid's update
+   step all-reduces only over the rank's vocab line, two a round, the
+   flat mesh's none; the NCCL run has one rank, so no payload collective
+   crosses ranks); every inventory against the
+   reference's ``tests/golden_collectives.json``; the PRNG checks
+   (``analysis.audit.prng_checks``: no key reuse, one batch split in a
+   training segment, the eval chunk and both serving slabs bit-equal whole
+   and in two chunks) on the card; and a ``CompileCounter`` spanning the
+   script (``kernels.common``'s ``ctypes.CDLL`` and ``nvcc`` calls): each
+   kernel library loaded once, at most one ``nvcc`` run each. One
+   ``analysis`` line, with the phase's seconds.
 7. Prints one ``{"kernels": [...]}`` line (each kernel at the shape most
    main-path launches have, and every shape under ``per_shape`` with its
    counted launches; K2's, K3's and K4's shapes also carry ``chain_ms``,
@@ -268,8 +291,9 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, families, lifecycle, scenario, Scale, training and the
-   families' training numbers with the card, and the script's seconds
+   LM-serving, families, lifecycle, scenario, Scale, training, the
+   families' training and the analysis numbers with the card, and the
+   script's seconds
    (each phase's end is printed as it comes). K5's compiled
    ``flex_attention`` yardstick (the softcap shapes, about 8.5 s of
    compile each) is compiled ahead by one spawned process at the lowest
@@ -285,6 +309,7 @@ alone), it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -437,6 +462,17 @@ MESH_GRID_ROUNDS = 10
 MESH_WARMUP = 2
 MESH_TIMEOUT_S = 300           # a spawned mesh phase that hangs fails
 MESH_TRAJ = dict(k=3, v=24, l=8, n=8, docs=4, batch=2, rounds=12, every=6)
+# the analysis layer's mesh rows (repro_torch.analysis.trace_audit), run
+# in the 2 x 2 grid's 4 gloo ranks, and the planted doc gather they must
+# catch there
+ANALYSIS_MESH = ("mesh_local_1d", "mesh_pass_1d", "mesh_pass_2d",
+                 "update_step_1d", "grid_estep_2d", "planted_doc_gather")
+# the kernels each single-process row must launch on the card
+ANALYSIS_KERNELS = {"deleda_scan": ("gossip_mix", "lda_gibbs"),
+                    "deleda_scan_sharded": ("gossip_mix", "lda_gibbs"),
+                    "eval_chunk": ("lda_l2r",),
+                    "serve_slab_ll": ("lda_l2r",),
+                    "serve_slab_mixture": ("lda_gibbs",)}
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # K5's library yardstick is SDPA where there is no softcap, and one
 # compiled flex_attention a gemma2 (softcap) shape (8.5-15 s of the host's
@@ -994,6 +1030,8 @@ class _Port:
         from repro_torch.data.lm_pipeline import TokenPipeline
         from repro_torch.launch import mesh, steps, train
         from repro_torch.optim import make_lr_schedule
+        from repro_torch.analysis import audit as analysis_audit
+        from repro_torch.analysis import collectives, trace_audit
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
@@ -1016,6 +1054,9 @@ class _Port:
         self.convert, self.smoke, self.pipeline = (convert, smoke_variant,
                                                    TokenPipeline)
         self.schedule = make_lr_schedule
+        # the analysis layer (slice 15)
+        self.audit, self.trace_audit = analysis_audit, trace_audit
+        self.collectives = collectives
 
         self.card = ""        # the card's name and power limit, for prints
         self.t_add_ns = 0.0   # one dependent float32 add (the chain bound)
@@ -3138,6 +3179,21 @@ def _mesh_rank(job):
     from repro_torch.launch import gossip_sim
     out = {}
     for name, run in job["runs"]:
+        if run.get("analysis"):
+            # the analysis layer's mesh rows (and the planted doc gather)
+            # in these ranks, their tensors on the card
+            t0 = time.perf_counter()
+            mine = rt.trace_audit.mesh_rank_ops(ANALYSIS_MESH, device="cuda")
+            torch.cuda.synchronize()
+            mine = {"ops": mine, "seconds": time.perf_counter() - t0}
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, mine)
+            if dist.get_rank() == 0:
+                out[name] = {
+                    "ops": {n: [r["ops"][n] for r in every]
+                            for n in ANALYSIS_MESH},
+                    "seconds": max(r["seconds"] for r in every)}
+            continue
         size = FULL if run.get("full") else MESH_TRAJ
         dev = run.get("device", "cuda")
         cfg_lda = _mesh_lda(rt, size)
@@ -3182,19 +3238,38 @@ def _mesh_rank(job):
                 mesh_shape=run.get("grid"), eval_every=every,
                 eval_spec=spec, device=dev)
 
+        # a full-width run's distributed calls are recorded (for
+        # _audit_mesh), the update step's marked as its phase
+        rec = rt.collectives.Recorder() if run.get("full") else None
+
+        def build_update(*a, **kw):
+            step = real_build(*a, **kw)
+            if run.get("timed"):
+                step = timed("update", step)
+            if rec is None:
+                return step
+
+            def update(*args):
+                rec.phase = "update"
+                try:
+                    return step(*args)
+                finally:
+                    rec.phase = "loop"
+            return update
+
         warm = mesh_run(MESH_WARMUP, 0, None).seconds if run.get("full") \
             else None
         try:
             if run.get("timed"):
                 rt.comm.MeshComm.mix_matching = timed("gossip", real_mix)
                 gossip.exchange = timed("exchange", real_exchange)
-                gossip_sim.build_update_step = (
-                    lambda *a, **kw: timed("update", real_build(*a, **kw)))
+            gossip_sim.build_update_step = build_update
             if dev == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
             rt.zero_counts()
-            res = mesh_run(run["rounds"], run.get("every", 0), spec)
+            with rec or contextlib.nullcontext():
+                res = mesh_run(run["rounds"], run.get("every", 0), spec)
             sync()
         finally:
             rt.comm.MeshComm.mix_matching = real_mix
@@ -3203,7 +3278,7 @@ def _mesh_rank(job):
         mine = {"by_shape": rt.by_shape(),
                 "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
                             if dev == "cuda" else 0.0),
-                "times": times}
+                "times": times, "ops": [] if rec is None else rec.ops}
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, mine)
         mc = rt.comm.MeshComm(rt.comm.make_grid_mesh(*run["grid"]),
@@ -3337,6 +3412,7 @@ def _drive_mesh(rt, dev):
                                      f"L={f['l']} K={f['k']} S=30",
                 "eval_lp": run["eval_lp"].tolist(),
                 "consensus": run["consensus"], "spawn_and_run_s": nccl_s}
+    nccl_out["audit"] = _audit_mesh(rt, run["ranks"], "mesh_nccl")
     note = ("" if world > 1 else
             "; one rank: every pair is intra-rank, no pass crosses ranks")
     print(f"mesh nccl: {world} rank(s) on {cards} card(s), {rounds} rounds "
@@ -3362,7 +3438,8 @@ def _drive_mesh(rt, dev):
         ("traj_cuda", {"rounds": MESH_TRAJ["rounds"], "grid": (2, 2),
                        "every": MESH_TRAJ["every"]}),
         ("traj_cpu", {"rounds": MESH_TRAJ["rounds"], "grid": (2, 2),
-                      "every": MESH_TRAJ["every"], "device": "cpu"})]},),
+                      "every": MESH_TRAJ["every"], "device": "cpu"}),
+        ("analysis", {"analysis": True})]},),
         timeout_s=MESH_TIMEOUT_S)
     grid_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
     flat = gossip_sim.launch(_mesh_rank, 2, "gloo", ({"runs": [
@@ -3374,6 +3451,9 @@ def _drive_mesh(rt, dev):
     _mesh_counts(gloo_rows, flat["flat"]["ranks"], want_flat,
                  "mesh gloo flat (2, 1)")
     g, fl = grid["grid"], flat["flat"]
+    audits = {"grid": _audit_mesh(rt, g["ranks"], "mesh_gloo_grid",
+                                  grid=(2, 2), rounds=MESH_GRID_ROUNDS),
+              "flat": _audit_mesh(rt, fl["ranks"], "mesh_gloo_flat")}
     err = float((g["stats"] - fl["stats"]).abs().max())
     cons_rel = float(np.max(np.abs(np.array(g["consensus"])
                                    - np.array(fl["consensus"]))
@@ -3414,7 +3494,7 @@ def _drive_mesh(rt, dev):
                 "grid_vs_flat_max_abs": err,
                 "grid_vs_flat_consensus_rel": cons_rel,
                 "traj_mass_rel": mass, "traj_lp_rel": lp_rel,
-                "spawn_and_run_s": grid_s}
+                "spawn_and_run_s": grid_s, "audit": audits}
     print(f"mesh gloo grid 2x2 on one card: {MESH_GRID_ROUNDS} rounds in "
           f"{g['seconds']:.3f} s (flat (2, 1): {fl['seconds']:.3f} s); a "
           f"round's exchange {per_round['grid']['exchange_s']:.3f} s (the "
@@ -3427,8 +3507,52 @@ def _drive_mesh(rt, dev):
           f"{gloo_out['flat_wire_bytes_per_round']:.0f}); grid vs flat: "
           f"stats {err:.3g} (bound 1e-5), consensus rel {cons_rel:.3g} "
           f"(bound 1e-4); card vs CPU at the test shapes: mass rel "
-          f"{mass:.3g}, LP rel {lp_rel:.3g} | {rt.card}", flush=True)
-    return rows, {"nccl": nccl_out, "gloo_grid": gloo_out, "card": rt.card}
+          f"{mass:.3g}, LP rel {lp_rel:.3g}; recorded calls audited (grid "
+          f"{audits['grid']['calls']}, flat {audits['flat']['calls']}): "
+          f"no doc-shaped integer payload, the grid's update all-reduces "
+          f"on the vocab lines | {rt.card}", flush=True)
+    return rows, {"nccl": nccl_out, "gloo_grid": gloo_out, "card": rt.card,
+                  "analysis_ranks": grid["analysis"]}
+
+
+def _audit_mesh(rt, ranks, where, grid=None, rounds=0):
+    """A full-width mesh run's recorded calls, every rank's: all of them
+    under the privacy rule (no integer tensor whose trailing dim is the
+    document length), and the update step's: on a node x vocab ``grid``
+    only all-reduces over the rank's vocab line, two a round; on a 1-D
+    mesh none. With one rank no payload collective may cross ranks."""
+    ta = rt.trace_audit
+    ops = [op for r in ranks for op in r["ops"]]
+    world = len(ranks)
+    report = ta.audit_ops(ops, ta.InvariantSpec(
+        where, allowed_collectives=ta.GOSSIP_ALLOWED
+        | {"all-reduce", "all-gather"}, doc_len=FULL["l"]))
+    update = [op for op in ops if op.phase == "update"]
+    want = 2 * rounds if grid else 0
+    upd = ta.audit_ops(update, ta.InvariantSpec(
+        f"{where} update", allowed_collectives=frozenset(
+            {"all-reduce"} if grid else ()),
+        max_counts=(("all-reduce", want),), doc_len=FULL["l"],
+        replica_groups=ta._vocab_groups(grid) if grid else None,
+        grouped_kinds=frozenset({"all-reduce"})))
+    per_rank = [sum(op.rank == r for op in update) for r in range(world)]
+    crossing = [op for op in ops if op.crosses_ranks]
+    if (not report.ok or not upd.ok or per_rank != [want] * world
+            or (world == 1 and crossing)):
+        raise AssertionError(f"{where} audit: {report.summary()}; update "
+                             f"step: {upd.summary()}, calls a rank "
+                             f"{per_rank} (want {want}); calls that cross "
+                             f"ranks: {len(crossing)}")
+    return {"ranks": world, "calls": len(ops),
+            "inventory": report.inventory,
+            "update_inventory": upd.inventory,
+            "payload_collectives_across_ranks": len(crossing),
+            "note": ("one rank: every pair is intra-rank, and no payload "
+                     "collective crosses ranks" if world == 1 else
+                     "every call passes the privacy rule; " + (
+                         "the update step's all-reduces run over the "
+                         "vocab lines" if grid else
+                         "the update step makes no collective"))}
 
 
 # ----------------------------------------------------------------------------
@@ -4412,6 +4536,7 @@ def _drive_family_training(rt, dev, lap, traj_rows):
     out["xlstm_sync_sim"] = _drive_sync_sim(rt, dev, xcfg, k1_rows)
     lap("xlstm sync_tree_sim")
     out["trajectory"] = _family_trajectory(rt, dev, k5_rows + traj_rows)
+    torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
     out["card"] = rt.card
     return out, k5_rows, k1_rows
@@ -4436,6 +4561,7 @@ def _drive_training(rt, dev, lap):
     out["decentralized"] = _drive_decentralized(rt, dev, k5_rows + k1_rows)
     lap("decentralized training")
     out["trajectory"] = _train_trajectory(rt, dev, k5_rows)
+    torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
     out.update(card=rt.card, k1_rows=k1_rows, k5_rows=k5_rows)
     return out
@@ -4498,6 +4624,70 @@ def _ptxas_lines(log):
     return out
 
 
+def _drive_analysis(rt, compiled, mesh):
+    """The analysis phase (slice 15): the single-process rows with the
+    kernels on (temp bytes by the card's meter against the reference's
+    budgets; a planted dense [K, V] beta must fail ``temp-budget``), the
+    mesh rows recorded in the grid's gloo ranks (``mesh``: their calls
+    and the slowest rank's seconds, counted in the phase's), every
+    inventory against the reference's golden, the PRNG checks on the
+    card, and the compile counter over the whole script (``compiled``,
+    exited here: each library loaded once, at most one nvcc run each)."""
+    ta = rt.trace_audit
+    t0 = time.perf_counter()
+    reports, rows = {}, {}
+    for name, kernels in ANALYSIS_KERNELS.items():
+        rt.zero_counts()
+        reports[name] = ta.run_audits([name], device="cuda")[name]
+        launched = rt.counts()
+        missing = [k for k in kernels if launched[k] < 1]
+        if missing:
+            raise AssertionError(f"analysis {name}: {missing} not launched")
+        rep = reports[name]
+        rows[name] = {"ok": rep.ok, "temp_bytes": rep.temp_bytes,
+                      "budget": rep.spec.max_temp_bytes,
+                      "launches": {k: launched[k] for k in kernels}}
+    planted = ta.run_audits(["planted_dense_temp"], device="cuda")[
+        "planted_dense_temp"]
+    caught = [v.rule for v in planted.violations] == ["temp-budget"]
+    mesh_reports = ta.reports_from_ranks(mesh["ops"])
+    leak = mesh_reports.pop("planted_doc_gather")
+    leak_rules = sorted({v.rule for v in leak.violations})
+    reports.update(mesh_reports)
+    golden = ta.check_against_golden(reports, ta.load_golden())
+    prng = rt.audit.prng_checks("cuda")
+    compiled.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0 + mesh["seconds"]
+    failed = [r.summary() for r in reports.values() if not r.ok]
+    if (failed or golden or prng or not caught
+            or leak_rules != ["collective-allowlist", "privacy-doc-buffer"]
+            or set(reports) != set(ta.ENTRY_POINTS)
+            or any(n != 1 for n in compiled.counts.values())
+            or any(n > 1 for n in compiled.builds.values())):
+        raise AssertionError(
+            f"analysis: failed rows {failed}, golden {golden}, prng {prng}, "
+            f"planted dense beta caught {caught}, planted doc gather "
+            f"{leak_rules}, loads {compiled.counts}, nvcc runs "
+            f"{compiled.builds}")
+    out = {"rows": rows,
+           "planted_dense_temp": {"caught": caught,
+                                  "temp_bytes": planted.temp_bytes,
+                                  "budget": planted.spec.max_temp_bytes},
+           "mesh_rows": {n: r.inventory for n, r in mesh_reports.items()},
+           "planted_doc_gather": leak_rules,
+           "golden_match": not golden, "prng_problems": prng,
+           "library_loads": compiled.counts, "nvcc_runs": compiled.builds,
+           "seconds": seconds, "card": rt.card}
+    print(f"analysis: {len(reports)} rows pass and match the reference's "
+          f"golden; temp bytes on the card "
+          f"{ {n: r['temp_bytes'] for n, r in rows.items()} }; planted "
+          f"dense beta {planted.temp_bytes} B caught; loads "
+          f"{compiled.counts}, nvcc runs {compiled.builds}; "
+          f"{seconds:.1f} s | {rt.card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'};"
@@ -4520,11 +4710,14 @@ def main() -> int:
           f"{_smi('driver_version')} | {card}; SM clock "
           f"{_smi('clocks.sm,clocks.max.sm')}", flush=True)
 
+    # the compile counter spans the script: exited in the analysis phase
+    compiled = rt.trace_audit.CompileCounter(*rt.common.KERNEL_NAMES)
+    compiled.__enter__()
     t0 = time.perf_counter()
     warmer = _start_library_warmer(rt)
     probe = _start_add_chain(rt)
     logs = rt.common.build_all()
-    build_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t0   # lint: allow(timer-no-barrier)
     for name, log in logs.items():
         for line in _ptxas_lines(log):
             print(f"  {name}: {line}")
@@ -4649,6 +4842,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("families' training")
     _library_warmer_state(warmer, t_start, stop=True)
+    # phase 9: the analysis layer (slice 15)
+    analysis = _drive_analysis(rt, compiled, scale["mesh"].pop(
+        "analysis_ranks"))
+    lap("analysis")
     all_rows = (rows + d_rows + s_rows + z_rows + b_rows + mesh_rows
                 + lm_rows + training.pop("k1_rows") + ft_k1)
     for row in all_rows:
@@ -4688,6 +4885,7 @@ def main() -> int:
     print(json.dumps({"scale": scale}))
     print(json.dumps({"training": training}))
     print(json.dumps({"families_training": fam_train}))
+    print(json.dumps({"analysis": analysis}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

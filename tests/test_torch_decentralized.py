@@ -16,10 +16,10 @@ order of its ``step_fn``: per node ``lm_loss`` / ``value_and_grad`` /
 ``opt.update`` for H steps, the loss after them, then its
 ``sync_tree_sim`` of the stacked parameters (which the reference holds
 equal to ``sync_tree_mesh``). Both start from the reference's consensus
-start (the mean of its n initial draws), restored from a checkpoint. The
-recorder of ``test_torch_mesh.py`` watches every ``torch.distributed``
-call of a run for the privacy rule. The ranks import this file, so it
-imports JAX only inside functions.
+start (the mean of its n initial draws), restored from a checkpoint.
+``repro_torch.analysis.collectives.Recorder`` watches every
+``torch.distributed`` call of a run for the privacy rule. The ranks
+import this file, so it imports JAX only inside functions.
 """
 
 import os
@@ -36,11 +36,12 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.analysis.collectives import Recorder  # noqa: E402
 from repro_torch.core import comm as port_comm  # noqa: E402
 from repro_torch.core import decentralized as dec  # noqa: E402
 from repro_torch.launch import gossip_sim, train  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from test_torch_mesh import LAUNCH_TIMEOUT_S, _Recorder  # noqa: E402
+from test_torch_mesh import LAUNCH_TIMEOUT_S  # noqa: E402
 
 N, H, STEPS, B, SEQ, LR, SEED = 4, 2, 3, 2, 16, 1e-3, 0
 SPECS = ["allreduce", "gossip-hypercube", "gossip-ring[1]"]
@@ -63,26 +64,9 @@ def _args(init_dir, sync, **kw):
 # What the ranks run (no JAX here)
 # ---------------------------------------------------------------------------
 
-class _Rec(_Recorder):
-    """The mesh test's recorder, plus ``all_gather_object`` (the run's
-    one object collective: each rank's peak memory)."""
-
-    NAMES = _Recorder.NAMES + ("all_gather_object",)
-
-    def __init__(self):
-        super().__init__()
-        self.objects = []
-
-    def _tensors(self, name, args, kwargs):
-        if name == "all_gather_object":
-            self.objects.append(type(args[1]).__name__)
-            return []
-        return super()._tensors(name, args, kwargs)
-
-
 def _run(data, sync, record=False):
     cfg = train.config_of(_args(data["init"], sync))
-    rec = _Rec() if record else None
+    rec = Recorder() if record else None
     if record:
         with rec:
             log = train.train_decentralized(cfg, _args(data["init"], sync),

@@ -35,6 +35,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+from repro_torch.analysis.collectives import Recorder  # noqa: E402
 from repro_torch.core import comm, deleda, evaluation, gossip  # noqa: E402
 from repro_torch.core import lda as port_lda  # noqa: E402
 from repro_torch.core.graph import complete_graph  # noqa: E402
@@ -122,50 +123,10 @@ def _resume(data, layout, mesh_shape=None):
     return None if full is None else {"full": full, "resumed": resumed}
 
 
-class _Recorder:
-    """Records every tensor the port hands to ``torch.distributed``."""
-
-    NAMES = ("all_reduce", "all_gather", "gather", "batch_isend_irecv",
-             "broadcast", "reduce", "scatter", "all_to_all",
-             "all_gather_into_tensor", "reduce_scatter_tensor")
-
-    def __init__(self):
-        self.records, self.phase, self.orig = [], "loop", {}
-
-    def _tensors(self, name, args, kwargs):
-        if name == "batch_isend_irecv":
-            return [op.tensor for op in args[0]]
-        if name == "all_gather":
-            return [args[1]]
-        return [args[0] if args else kwargs["tensor"]]
-
-    def _wrap(self, name, fn):
-        def recorded(*args, **kwargs):
-            group = kwargs.get("group")
-            ranks = (tuple(range(dist.get_world_size())) if group is None
-                     else tuple(dist.get_process_group_ranks(group)))
-            for t in self._tensors(name, args, kwargs):
-                self.records.append((self.phase, name, str(t.dtype),
-                                     t.is_floating_point(), tuple(t.shape),
-                                     ranks))
-            return fn(*args, **kwargs)
-        return recorded
-
-    def __enter__(self):
-        for name in self.NAMES:
-            self.orig[name] = getattr(dist, name)
-            setattr(dist, name, self._wrap(name, self.orig[name]))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(dist, name, fn)
-
-
 def _privacy(data, mesh_shape):
     """run_mesh_deleda under the recorder; update_fn's calls are marked."""
     build = gossip_sim.build_update_step
-    rec = _Recorder()
+    rec = Recorder()
 
     def marked(*args, **kwargs):
         fn = build(*args, **kwargs)
