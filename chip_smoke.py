@@ -220,15 +220,31 @@
       memory; one more step under ``torch.profiler`` (device time in
       K5, the attention backward, the optimizer, other matmuls; the
       card's idle share).
+   c2. The sharding slice (slice 16, ``_drive_sharding``), on a
+      one-card ``DeviceMesh`` (a one-rank NCCL world): the same train
+      step through ``launch.steps.build`` for 3 steps from the state c
+      leaves, each loss and grad norm against ``make_train_step`` on a
+      copy of that state (bit for bit), K5's
+      launches counted by shape as in c; s/step beside c's; one more
+      step under ``roofline.StepCounter`` (K5's FLOPs and bytes from its
+      launches) and ``roofline.analyze``'s H100 compute and memory
+      seconds, a model from datasheet figures, printed beside the
+      measured s/step. Then gemma2-2b's decode step through ``build``
+      at the serve phase's 8 of 26 layers, B=4, S_max=192, 8 steps,
+      its logits against ``make_decode_step``'s (each on its own
+      caches; bit for bit), 64 K5 "decode" launches. Beside both, in a process of
+      its own on the CPU: ``python -m repro_torch.launch.dryrun --arch
+      gemma2_2b --shape train_4k`` (16 x 16 on a fake world of 512),
+      its report lines and seconds.
    d. ``train_decentralized`` at full width, depth cut to 2 layers, 4
       gloo ranks sharing the card (one node a rank), H = 2, 3 steps, B=2,
-      once each with allreduce, gossip-hypercube and gossip-ring[1]:
+      once each with allreduce and gossip-ring[1]:
       spread 0 after the exact syncs and > 0 after ring[1], the loss
       finite and falling, K5 counted on every rank and no K1 launched
       (no pair inside a rank); s/step, a sync's seconds and bytes beside
       ``collective_bytes_per_sync``, peak memory a rank. The same ranks
       then train xlstm-125m whole (the default arch; exact hypercube,
-      B=2, S=256, H=1, 3 steps, ``FDEC``): the loss finite, spread 0,
+      B=2, S=256, H=1, 2 steps, ``FDEC``): the loss finite, spread 0,
       no K1 or K5 launched. Then ``sync_tree_sim`` (exact hypercube)
       over a stacked 4-node copy of gemma2's tree on the card: K1's
       launches by shape equal leaves x rounds, and every node ends equal
@@ -244,7 +260,7 @@
       forward and backward beside it. Then
       zamba2-2.7b whole (AdamW, remat "full", B=4, S=512, 5 steps),
       xlstm-125m whole through ``launch.train.main`` with no ``--arch``
-      (the default; 3 steps), whisper-small whole (1,500 stub frames, decoder
+      (the default; 2 steps), whisper-small whole (1,500 stub frames, decoder
       S=256), pixtral at 10 of 40 layers (B=2, 256 stub image tokens
       and S=256) and arctic at 1 of 35 (Adafactor in pieces, B=1,
       S=256, 3 steps), the last four through ``steps.make_train_step``
@@ -291,7 +307,8 @@
    chains a document's particle makes, E(E+1)/2 for E active positions
    (``_l2r_chain_ms``); each at this run's t_add, beside the bytes and
    operations bound), one line each of serving, DELEDA, unique-layout,
-   LM-serving, families, lifecycle, scenario, Scale, training, the
+   LM-serving, families, lifecycle, scenario, Scale, training (with the
+   sharding phase's numbers under "sharding"), the
    families' training and the analysis numbers with the card, and the
    script's seconds
    (each phase's end is printed as it comes). K5's compiled
@@ -495,8 +512,10 @@ ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # trajectory at the granite smoke width
 TRAIN = dict(arch="gemma2_2b", batch=4, seq=512, steps=10)
 TRAIN_LR = 1e-2
+# gemma2-2b's exact gossip-hypercube run was cut to keep the script in
+# its time limit: the same ranks run xlstm-125m's exact hypercube (FDEC)
 DEC = dict(layers=2, nodes=4, local_steps=2, steps=3, batch=2,
-           syncs=("allreduce", "gossip-hypercube", "gossip-ring[1]"))
+           syncs=("allreduce", "gossip-ring[1]"))
 DEC_TIMEOUT_S = 600
 TRAJ = dict(arch="granite_3_8b", batch=2, seq=64, steps=3)
 TRAJ_LR = 1e-2
@@ -515,7 +534,7 @@ FAMILY_TRAIN = (
     dict(tag="zamba2", arch="zamba2_2p7b", layers=None, batch=4, seq=512,
          steps=5),
     dict(tag="xlstm", arch="xlstm_125m", layers=None, batch=4, seq=512,
-         steps=3),
+         steps=2),
     dict(tag="whisper", arch="whisper_small", layers=None, batch=4,
          seq=256, steps=5),
     dict(tag="pixtral", arch="pixtral_12b", layers=10, batch=2, seq=256,
@@ -524,11 +543,11 @@ FAMILY_TRAIN = (
          steps=3),
 )
 # xlstm-125m decentralized, in phase d's ranks after gemma2-2b's runs:
-# exact hypercube, B=2 a node at S=256, H=1, 3 steps (its sLSTM is a loop
+# exact hypercube, B=2 a node at S=256, H=1, 2 steps (its sLSTM is a loop
 # over time on the host: 5.5-8.1 s a step at B=4, S=512 in one process on
-# the H100, and the ranks share the host's 8 cores; xlstm trains 3 steps
+# the H100, and the ranks share the host's 8 cores; xlstm trains 2 steps
 # in phase f too, both cut from 5 to keep the script in its time limit)
-FDEC = dict(nodes=4, local_steps=1, steps=3, batch=2, seq=256,
+FDEC = dict(nodes=4, local_steps=1, steps=2, batch=2, seq=256,
             sync="gossip-hypercube")
 # phase e's float32 trajectory also trains these smoke variants (whisper
 # at 48 stub frames, so its encoder and cross-attention shapes differ;
@@ -1032,6 +1051,8 @@ class _Port:
         from repro_torch.optim import make_lr_schedule
         from repro_torch.analysis import audit as analysis_audit
         from repro_torch.analysis import collectives, trace_audit
+        from repro_torch import roofline
+        from repro_torch.configs import InputShape
         self.estep, self.evaluation, self.tf3 = estep, evaluation, tf3
         self.serving, self.deleda, self.graph, self.lda = (serving, deleda,
                                                            graph, lda)
@@ -1057,6 +1078,8 @@ class _Port:
         # the analysis layer (slice 15)
         self.audit, self.trace_audit = analysis_audit, trace_audit
         self.collectives = collectives
+        # the sharding slice (slice 16)
+        self.roofline, self.input_shape = roofline, InputShape
 
         self.card = ""        # the card's name and power limit, for prints
         self.t_add_ns = 0.0   # one dependent float32 add (the chain bound)
@@ -3842,7 +3865,7 @@ def _drive_train(rt, dev, rows):
            "peak_mem_gb": log.peak_bytes[0] / 1e9,
            "k5_launches_per_step": per_step * cfg.n_layers,
            "k5_ms_per_step": k5_ms, "attention_bwd_ms_per_step": bwd_ms,
-           "profile": profile, "card": rt.card}
+           "profile": profile, "card": rt.card, "state": log.state}
     print(f"gemma2-2b train (standard, full width and depth) B="
           f"{TRAIN['batch']} S={TRAIN['seq']}: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, {steady:.3f} s/step ({out['tokens_per_s']:.0f}"
@@ -3852,6 +3875,224 @@ def _drive_train(rt, dev, rows):
     del log
     torch.cuda.empty_cache()
     return out
+
+
+# the sharding phase: the train step of _drive_train, the serve phase's
+# decode (8 of 26 layers, B=4, S_max = prompt + gen), one dry run
+SHARD = dict(train_steps=3, decode_steps=8, dry_arch="gemma2_2b",
+             dry_shape="train_4k", dry_timeout=300)
+
+
+def _cloned(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda t: t.clone() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _sharded_train(rt, dev, mesh, state, rows, standard):
+    """(a): ``steps.build``'s train step on the one-card mesh from the
+    state ``_drive_train`` leaves, against ``make_train_step`` on a copy
+    of it; then one step under the dispatch counters and the H100
+    roofline of its counts."""
+    cfg = rt.get_config(TRAIN["arch"])
+    n = SHARD["train_steps"]
+    shape = rt.input_shape("card_train", TRAIN["seq"], TRAIN["batch"],
+                           "train")
+    step = rt.steps.build(cfg, shape, mesh)
+    batches = [next(rt.pipeline(cfg.vocab_size, TRAIN["seq"],
+                                TRAIN["batch"], seed=7 + i).batches(dev)
+                    )._asdict() for i in range(n + 1)]
+    # the plain step on a copy of the same state (build's step runs the
+    # reference's default lr; so does this one)
+    train_step, _ = rt.steps.make_train_step(cfg)
+    plain = rt.steps.TrainState(_cloned(state.params), _cloned(state.opt),
+                                state.step)
+    want = []
+    for b in batches[:n]:
+        plain, m = train_step(plain, b)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    del plain
+    torch.cuda.empty_cache()
+    placed, _ = step.place(state, {})
+    per_layer = {kind: sum(1 for i in range(cfg.n_layers)
+                           if (i % 2 == 0) == (kind == "local"))
+                 for kind in ("local", "global")}
+    per_step = 2 if cfg.remat and cfg.remat_policy != "none" else 1
+    rt.zero_counts()
+    got, secs = [], []
+    for b in batches[:n]:
+        pb = step.place(None, b)[1]
+        sec, (placed, m) = _seconds(lambda: step(placed, pb))
+        secs.append(sec)
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    _lm_counts(rt, rows, "sharding: build's train step",
+               {f"train_{k}": v * per_step * n for k, v in per_layer.items()})
+    # every placement is Replicate and the local ops are the plain
+    # step's: equal bit for bit
+    if got != want:
+        raise AssertionError(f"build's train step: loss / grad_norm "
+                             f"{got}, make_train_step {want}")
+    # one more step under the counters; K5 (a ctypes launch) counted from
+    # its launches, its FLOPs as the dry run counts them, its bytes its
+    # q, k, v and output once
+    rt.zero_counts()
+    pb = step.place(None, batches[n])[1]
+    with rt.roofline.StepCounter() as counter:
+        sec_counted, (placed, m) = _seconds(lambda: step(placed, pb))
+    k5_flops = rt.roofline.attention_flops(rt.flash_ops.launches_by_shape)
+    k5_bytes = rt.roofline.attention_bytes(rt.flash_ops.launches_by_shape)
+    _lm_counts(rt, rows, "sharding: counted step",
+               {f"train_{k}": v * per_step for k, v in per_layer.items()})
+    report = rt.roofline.analyze(
+        cfg, shape, "1", 1, counter.flops + k5_flops,
+        counter.bytes + k5_bytes, counter.collective_bytes,
+        counter.collectives, {"temp_size_in_bytes": counter.temp_peak})
+    s_step = statistics.mean(secs[1:])
+    out = {"losses": [g[0] for g in got], "grad_norms": [g[1] for g in got],
+           "make_train_step": want, "bitwise": True,
+           "s_per_step": s_step, "step_seconds": secs,
+           "drive_train_s_per_step": standard["s_per_step"],
+           "counted_step_s": sec_counted,
+           "flops": counter.flops + k5_flops, "k5_flops": k5_flops,
+           "bytes": counter.bytes + k5_bytes,
+           "roofline_model_s": {"compute": report.compute_sec,
+                                "memory": report.memory_sec,
+                                "collective": report.collective_sec,
+                                "dominant": report.dominant},
+           "useful_flops_ratio": report.useful_flops_ratio}
+    print(f"sharding (a): gemma2-2b train step through steps.build on the "
+          f"one-card mesh, B={TRAIN['batch']} S={TRAIN['seq']}: losses "
+          f"{out['losses']} grad norms {out['grad_norms']}, "
+          f"make_train_step's {want}: "
+          f"bit for bit; "
+          f"{s_step:.3f} s/step (make_train_step in launch.train: "
+          f"{standard['s_per_step']:.3f}); counted step: "
+          f"{out['flops']:.4g} FLOPs (K5 {k5_flops:.4g}), "
+          f"{out['bytes']:.4g} bytes; roofline, a model from H100 "
+          f"datasheet figures (989 TFLOP/s bf16, 3.35 TB/s), not a "
+          f"measurement: compute {report.compute_sec:.4f} s, memory "
+          f"{report.memory_sec:.4f} s ({report.dominant}), beside "
+          f"{s_step:.3f} s/step measured | {rt.card}", flush=True)
+    return out, placed
+
+
+def _sharded_decode(rt, dev, mesh):
+    """(b): ``steps.build``'s decode step at the serve phase's depth
+    against ``make_decode_step``, each on its own caches."""
+    cfg = dataclasses.replace(rt.get_config(LM["arch"]),
+                              n_layers=LM["layers"])
+    b, s_max, n = LM["batch"], LM["prompt"] + LM["gen"], SHARD["decode_steps"]
+    params = rt.lm.init_decoder_lm(
+        cfg, torch.Generator(device=dev).manual_seed(LM["seed"]))
+    toks = torch.randint(0, cfg.vocab_size, (b, n), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    dec = rt.steps.make_decode_step(cfg)
+    caches = rt.lm.init_caches(cfg, b, s_max, dev)
+    want = []
+    for i in range(n):
+        logits, caches = dec(params, {"tokens": toks[:, i:i + 1],
+                                      "index": i, "caches": caches})
+        want.append(logits)
+    step = rt.steps.build(cfg, rt.input_shape("card_decode", s_max, b,
+                                              "decode"), mesh)
+    pp, pb = step.place(params, {"caches": rt.lm.init_caches(
+        cfg, b, s_max, dev)})
+    caches = pb["caches"]
+    rt.zero_counts()
+    got, secs = [], []
+    for i in range(n):
+        tb = step.place(None, {"tokens": toks[:, i:i + 1]})[1]["tokens"]
+        sec, (logits, caches) = _seconds(lambda: step(
+            pp, {"tokens": tb, "index": i, "caches": caches}))
+        secs.append(sec)
+        got.append(logits.full_tensor())
+    launches = dict(rt.flash_ops.launches_by_variant)
+    if launches != {"decode": cfg.n_layers * n} or any(
+            rt.counts().values()):
+        raise AssertionError(f"build's decode step: K5 launches by variant "
+                             f"{launches}, want {{'decode': "
+                             f"{cfg.n_layers * n}}}; LDA {rt.counts()}")
+    diff = max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+    top = max(float(w.float().abs().max()) for w in want)
+    # every placement Replicate: the same kernels on the same local
+    # tensors, so the logits are equal bit for bit
+    if diff != 0.0:
+        raise AssertionError(f"build's decode logits differ from "
+                             f"make_decode_step's by {diff} (largest "
+                             f"logit {top})")
+    out = {"layers": cfg.n_layers, "batch": b, "s_max": s_max,
+           "steps": n, "k5_decode_launches": launches["decode"],
+           "bitwise": True,
+           "s_per_step": statistics.mean(secs[1:])}
+    print(f"sharding (b): gemma2-2b decode through steps.build ({cfg.n_layers}"
+          f" of 26 layers, B={b}, S_max={s_max}), {n} steps: logits against "
+          f"make_decode_step's: bit for bit (largest logit {top:.3g}); "
+          f"K5 'decode' launches "
+          f"{launches['decode']}; {out['s_per_step'] * 1e3:.2f} ms/step "
+          f"| {rt.card}", flush=True)
+    return out
+
+
+def _drive_sharding(rt, dev, state, rows, standard):
+    """Phase 8b (slice 16): the LM scaffold's sharding half on the card.
+    (a) gemma2-2b's train step through ``launch.steps.build`` on a
+    one-card ``DeviceMesh`` against ``make_train_step``, K5 counted by
+    shape, then one step counted and its H100 roofline beside the
+    measured s/step; (b) the decode step through ``build`` against
+    ``make_decode_step``; (c) one production dry run (gemma2-2b x
+    train_4k x 16x16 on a fake world of 512) in a process of its own,
+    started first, on the CPU beside (a) and (b)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as tmp:
+        dry = subprocess.Popen(
+            ["nice", "-n", "10", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--arch", SHARD["dry_arch"],
+             "--shape", SHARD["dry_shape"], "-o", os.path.join(tmp, "dry")],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            own = not dist.is_initialized()
+            if own:
+                dist.init_process_group(
+                    "nccl", store=dist.FileStore(os.path.join(tmp, "pg"), 1),
+                    rank=0, world_size=1)
+            try:
+                mesh = rt.mesh.make_lm_host_mesh("cuda")
+                train, state = _sharded_train(rt, dev, mesh, state, rows,
+                                              standard)
+                del state
+                torch.cuda.empty_cache()
+                decode = _sharded_decode(rt, dev, mesh)
+            finally:
+                if own:
+                    dist.destroy_process_group()
+            log, _ = dry.communicate(timeout=SHARD["dry_timeout"])
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+    lines = [x for x in log.splitlines() if x.startswith(("== ", "   "))]
+    if dry.returncode != 0 or "1/1 combinations ran" not in log:
+        raise AssertionError(f"dry run exited {dry.returncode}:\n"
+                             f"{log[-3000:]}")
+    for x in lines:
+        print(f"sharding (c): {x.strip()}", flush=True)
+    took = re.search(r"\(build ([\d.]+)s run ([\d.]+)s\)", lines[0])
+    dry_s = float(took.group(1)) + float(took.group(2))
+    print(f"sharding (c): the dry run's build and run {dry_s:.1f} s by its "
+          f"own clock (a process of its own, on the CPU: counts and H100 "
+          f"model seconds, not a measurement) | {rt.card}", flush=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"sharding phase: {seconds:.1f} s | {rt.card}", flush=True)
+    return {"train": train, "decode": decode,
+            "dryrun": {"lines": lines, "seconds": dry_s},
+            "seconds": seconds, "card": rt.card}
+
 
 
 def _train_rank(job):
@@ -4558,6 +4799,10 @@ def _drive_training(rt, dev, lap):
     lap("training K1 and K5 holds")
     out = {"standard": _drive_train(rt, dev, k5_rows)}
     lap("gemma2-2b standard training")
+    out["sharding"] = _drive_sharding(rt, dev, out["standard"].pop("state"),
+                                      k5_rows, out["standard"])
+    torch.cuda.empty_cache()
+    lap("sharding: build, roofline, dry run")
     out["decentralized"] = _drive_decentralized(rt, dev, k5_rows + k1_rows)
     lap("decentralized training")
     out["trajectory"] = _train_trajectory(rt, dev, k5_rows)

@@ -6,8 +6,8 @@ and its analytic ``n_params`` whole, with ``torch_dtype`` in place of
 holds the published numbers and cites its source (``lda_paper.py`` is
 the paper's own DELEDA setup, not an arch). ``smoke_variant`` shrinks a
 config to a 2-layer, d_model<=256 float32 version for CPU tests, with
-the reference's per-family updates. The dry run's ``INPUT_SHAPES`` wait
-with the dry run.
+the reference's per-family updates. ``InputShape`` / ``INPUT_SHAPES``
+are the dry run's four step shapes, verbatim.
 """
 
 from __future__ import annotations
@@ -143,6 +143,21 @@ class ModelConfig:
             * self.top_k * 3 * d * self.moe_d_ff
         return int(full - all_experts + active)
 
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 ARCH_IDS = [
     "kimi_k2_1t_a32b", "arctic_480b", "whisper_small", "gemma2_2b",

@@ -3,10 +3,10 @@
 The port's copy of ``repro.data.lm_pipeline``: a deterministic synthetic
 token stream drawn with numpy on the host, the reference's generator and
 draws in its order, so a seed gives the reference's batches bit for bit.
-Each batch is built on the CPU and moved to the caller's device. The
-reference's ``sharded_batch`` and ``make_lm_batch_specs`` (jax shardings
-and ``ShapeDtypeStruct`` specs for the dry run) wait for the sharding
-slice of the port.
+Each batch is built on the CPU and moved to the caller's device.
+``sharded_batch`` builds one batch as a DTensor, each rank drawing only
+its own shard; ``make_lm_batch_specs`` gives a train batch's ``meta``
+stand-ins for the dry run.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["LMBatch", "TokenPipeline"]
+__all__ = ["LMBatch", "TokenPipeline", "make_lm_batch_specs"]
 
 
 class LMBatch(NamedTuple):
@@ -66,3 +66,39 @@ class TokenPipeline:
                 mask=torch.ones((self.batch_size, self.seq_len),
                                 dtype=torch.bool, device=device),
             )
+
+    def sharded_batch(self, mesh, placements) -> LMBatch:
+        """One batch as DTensors on ``mesh`` under ``placements``: each
+        rank draws only its own shard of the [B, S] tokens (Zipf, as the
+        reference's per-shard generator draws them), so no rank holds the
+        global batch, and places it on the mesh's device. ``targets`` is
+        ``tokens`` rolled by one along the sequence, ``mask`` all true.
+
+        Each shard's generator is seeded with ``(seed, row offset, column
+        offset)`` through ``numpy.random.SeedSequence``, a stable
+        function, so the batch is the same in every process. (The
+        reference seeds it with ``seed + hash(str(index))``, and Python
+        salts ``str`` hashes per process, so its sharded batches change
+        from run to run.)"""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.sharding.local import local_offset
+        shape, offset = local_offset(None, placements,
+                                     (self.batch_size, self.seq_len), mesh)
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [self.seed, *offset]))
+        local = torch.from_numpy(rng.choice(
+            self.vocab_size, shape, p=self._zipf_probs()).astype(np.int32))
+        tokens = DTensor.from_local(local.to(mesh.device_type), mesh,
+                                    placements, run_check=False)
+        targets = torch.roll(tokens, -1, dims=1)
+        return LMBatch(tokens=tokens, targets=targets,
+                       mask=torch.ones_like(tokens, dtype=torch.bool))
+
+
+def make_lm_batch_specs(batch_size: int, seq_len: int) -> dict:
+    """A train step's batch as ``meta`` tensors (dry-run path)."""
+    def meta(dtype):
+        return torch.empty((batch_size, seq_len), dtype=dtype, device="meta")
+    return {"tokens": meta(torch.int32), "targets": meta(torch.int32),
+            "mask": meta(torch.bool)}

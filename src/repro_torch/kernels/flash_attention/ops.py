@@ -37,6 +37,12 @@ backward is ``ref.attention_bwd``, torch ops that recompute the float32
 scores, as the reference's autodiff through its einsums does (the JAX
 package has no backward kernel). Under ``torch.no_grad`` (serving) the
 same forward runs and nothing is kept.
+
+The plain forward and the backward are each one ``torch.library``
+custom op (``repro_torch::flash_attention_plain`` and
+``::flash_attention_bwd``) with a fake implementation, so fake tensors
+run them, and a dispatch mode sees one op with the kernel's inputs and
+outputs, not its [S, S] temporaries.
 """
 
 from __future__ import annotations
@@ -180,16 +186,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             float(scale), int(q_offset))
 
 
+@torch.library.custom_op("repro_torch::flash_attention_plain",
+                         mutates_args=())
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int], softcap: Optional[float], scale: float,
+           q_offset: int) -> torch.Tensor:
+    """The plain version at the kernel's [B, S, H, D] interface, one op
+    to a dispatch mode, as the kernel is one launch."""
+    b, sq, h, d = q.shape
+
+    def bh(x):
+        return x.transpose(1, 2).reshape(-1, x.shape[1], d)
+    out = attention_ref(bh(q), bh(k), bh(v), causal=causal, window=window,
+                        softcap=softcap, scale=scale, q_offset=q_offset)
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def _heads_major(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of ``x``'s [B, S, H, D] shape in the plain
+    version's layout, [B, H, S, D] in memory (fake implementations)."""
+    b, s, h, d = x.shape
+    return x.new_empty((b, h, s, d)).transpose(1, 2)
+
+
+@_plain.register_fake
+def _(q, k, v, causal, window, softcap, scale, q_offset):
+    return _heads_major(q)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              dout: torch.Tensor, causal: bool, window: Optional[int],
+              softcap: Optional[float], scale: float, q_offset: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ref.attention_bwd`` as one op, on every device."""
+    return attention_bwd(q, k, v, dout, causal=causal, window=window,
+                         softcap=softcap, scale=scale, q_offset=q_offset)
+
+
+@_backward.register_fake
+def _(q, k, v, dout, causal, window, softcap, scale, q_offset):
+    return _heads_major(q), _heads_major(k), _heads_major(v)
+
+
 def _forward(q, k, v, causal, window, softcap, scale, q_offset):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    b, sq, h, d = q.shape
     if q.device.type == "cpu":
-        def bh(x):
-            return x.transpose(1, 2).reshape(-1, x.shape[1], d)
-        out = attention_ref(bh(q), bh(k), bh(v), causal=causal,
-                            window=window, softcap=softcap, scale=scale,
-                            q_offset=q_offset)
-        return out.reshape(b, h, sq, d).transpose(1, 2)
+        return _plain(q, k, v, causal, window, softcap, scale, q_offset)
     window = GLOBAL_WINDOW if window is None else int(window)
     return _launch(q, k, v, int(causal), window, softcap, scale, q_offset)
 
@@ -200,12 +243,11 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.args = dict(causal=causal, window=window, softcap=softcap,
-                        scale=scale, q_offset=q_offset)
+        ctx.args = (causal, window, softcap, scale, q_offset)
         return _forward(q, k, v, causal, window, softcap, scale, q_offset)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, dout, **ctx.args)
+        dq, dk, dv = _backward(q, k, v, dout, *ctx.args)
         return dq, dk, dv, None, None, None, None, None

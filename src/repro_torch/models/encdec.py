@@ -27,10 +27,12 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import (ForwardOutput, _apply_mlp,
                                             _apply_norm, _init_attention,
                                             _init_mlp, _maybe_remat,
-                                            _norm_init, _put)
+                                            _mlp_axes, _norm_axes,
+                                            _norm_init, _put, _stacked_axes)
 
-__all__ = ["init_encdec", "encode", "forward_encdec", "EncDecCaches",
-           "init_encdec_caches", "decode_step_encdec", "encdec_loss"]
+__all__ = ["init_encdec", "encdec_axes", "encode", "forward_encdec",
+           "EncDecCaches", "init_encdec_caches", "decode_step_encdec",
+           "encdec_loss"]
 
 
 def _init_enc_layer(cfg: ModelConfig, gen, dtype) -> dict:
@@ -72,6 +74,26 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator,
         "decoder": [_put(_init_dec_layer(cfg, gen, dtype), dev)
                     for _ in range(cfg.n_layers)],
         "final_norm": _put(_norm_init(cfg, dtype, gen.device), dev),
+    }
+
+
+def encdec_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_encdec``'s tree, leaf for leaf."""
+    enc = {"ln1": _norm_axes(cfg),
+           "attn": attn_mod.attention_axes(qkv_bias=True),
+           "ln2": _norm_axes(cfg), "mlp": _mlp_axes(cfg)}
+    dec = {"ln1": _norm_axes(cfg),
+           "self_attn": attn_mod.attention_axes(qkv_bias=True),
+           "lnx": _norm_axes(cfg),
+           "cross_attn": attn_mod.attention_axes(qkv_bias=True),
+           "ln2": _norm_axes(cfg), "mlp": _mlp_axes(cfg)}
+    return {
+        "embed": L.embedding_axes(),
+        "pos_embed": ("seq", "embed"),
+        "encoder": _stacked_axes(cfg.n_encoder_layers, enc),
+        "enc_norm": _norm_axes(cfg),
+        "decoder": _stacked_axes(cfg.n_layers, dec),
+        "final_norm": _norm_axes(cfg),
     }
 
 

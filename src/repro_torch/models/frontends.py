@@ -9,8 +9,9 @@ embeddings:
   vision: patch embeddings  [B, N_patch,  d_model]   (prepended to text)
 
 Drawn from a CPU generator and moved to ``device``, so a seed gives the
-same inputs on every device. The dry run's ``*_spec`` functions wait
-with the dry run.
+same inputs on every device. The dry run's ``*_spec`` functions give
+``meta`` tensors of the same shapes and dtypes (the counterpart of the
+reference's ``ShapeDtypeStruct``): no value is drawn.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["audio_frames_stub", "image_patches_stub", "sinusoid"]
+__all__ = ["audio_frames_stub", "image_patches_stub", "audio_frames_spec",
+           "image_patches_spec", "sinusoid"]
 
 
 def sinusoid(t: int, d: int) -> torch.Tensor:
@@ -54,3 +56,17 @@ def image_patches_stub(cfg: ModelConfig, gen: torch.Generator, batch: int,
     n = n_patches or cfg.n_image_tokens
     return torch.randn((batch, n, cfg.d_model), generator=gen).to(
         cfg.torch_dtype).to(device)
+
+
+def audio_frames_spec(cfg: ModelConfig, batch: int,
+                      n_frames: Optional[int] = None) -> torch.Tensor:
+    t = n_frames or cfg.max_source_len
+    return torch.empty((batch, t, cfg.d_model), dtype=cfg.torch_dtype,
+                       device="meta")
+
+
+def image_patches_spec(cfg: ModelConfig, batch: int,
+                       n_patches: Optional[int] = None) -> torch.Tensor:
+    n = n_patches or cfg.n_image_tokens
+    return torch.empty((batch, n, cfg.d_model), dtype=cfg.torch_dtype,
+                       device="meta")

@@ -15,9 +15,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["trunc_normal", "init_rmsnorm", "apply_rmsnorm",
-           "init_layernorm", "apply_layernorm", "apply_rope", "init_mlp",
-           "apply_mlp", "activation", "init_embedding", "apply_embedding",
+from repro_torch.sharding.local import is_dtensor, local_offset, placed
+
+__all__ = ["trunc_normal", "init_rmsnorm", "rmsnorm_axes", "apply_rmsnorm",
+           "init_layernorm", "layernorm_axes", "apply_layernorm",
+           "apply_rope", "init_mlp", "mlp_axes", "apply_mlp", "activation",
+           "init_embedding", "embedding_axes", "apply_embedding",
            "apply_unembed", "softcap"]
 
 
@@ -48,6 +51,10 @@ def init_rmsnorm(d: int, dtype, device) -> dict:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+def rmsnorm_axes() -> dict:
+    return {"scale": ("embed",)}
+
+
 def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6
                   ) -> torch.Tensor:
     """Gemma-style RMSNorm, ``x / rms(x) * (1 + scale)`` in float32."""
@@ -60,6 +67,10 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6
 def init_layernorm(d: int, dtype, device) -> dict:
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_axes() -> dict:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def apply_layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5
@@ -104,6 +115,11 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
     }
 
 
+def mlp_axes() -> dict:
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def activation(act: str):
     """silu, or gelu in its tanh form (the reference's approximate=True)."""
     if act == "silu":
@@ -127,9 +143,44 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
     return {"table": trunc_normal(gen, (vocab, d), dtype, fan_in=d)}
 
 
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+def _embedding_sharded(table, tokens):
+    """The lookup on DTensors, vocab parallel: each rank looks up the
+    tokens of its batch shard in its own rows of the table (sharded over
+    "vocab", gathered over any other mesh dim), zero for the others',
+    and the ranks' rows are summed; the result is placed like the tokens
+    (batch-sharded, whole along the sequence and the features). On one
+    vocab shard it is the plain lookup, bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = tokens.device_mesh
+    batch = [pl == Shard(0) for pl in tokens.placements]
+    vocab = [pl == Shard(0) and not b
+             for pl, b in zip(table.placements, batch)]
+    pt = tuple(Shard(0) if v else Replicate() for v in vocab)
+    grad = tuple(Partial() if b else pl for b, pl in zip(batch, pt))
+    rows = placed(table, pt).to_local(grad_placements=grad)
+    toks = tokens.to_local()
+    v0 = local_offset(table, pt)[1][0]
+    n = rows.shape[0]
+    mine = (toks >= v0) & (toks < v0 + n)
+    out = F.embedding((toks - v0).clamp(0, n - 1), rows)
+    if any(vocab):
+        out = out * mine[..., None].to(out.dtype)
+    po = tuple(Shard(0) if b else (Partial() if v else Replicate())
+               for b, v in zip(batch, vocab))
+    return DTensor.from_local(out, mesh, po, run_check=False).redistribute(
+        mesh, tokens.placements)
+
+
 def apply_embedding(p: dict, tokens: torch.Tensor,
                     scale_by_sqrt_d: bool = True) -> torch.Tensor:
-    emb = p["table"][tokens]
+    if is_dtensor(tokens):
+        emb = _embedding_sharded(p["table"], tokens)
+    else:
+        emb = F.embedding(tokens, p["table"])
     if scale_by_sqrt_d:
         emb = emb * float(p["table"].shape[1]) ** 0.5
     return emb

@@ -26,8 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import trunc_normal
 
-__all__ = ["Mamba2Dims", "MambaCache", "init_mamba_cache", "init_mamba2",
-           "apply_mamba2"]
+__all__ = ["Mamba2Dims", "MambaCache", "init_mamba_cache", "mamba_cache_axes",
+           "init_mamba2", "mamba2_axes", "apply_mamba2"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +71,11 @@ def init_mamba_cache(dims: Mamba2Dims, batch: int, dtype,
                         dtype=torch.float32, device=device))
 
 
+def mamba_cache_axes() -> MambaCache:
+    return MambaCache(conv=("batch", "seq", "mlp"),
+                      ssm=("batch", "heads", "head_dim", "state"))
+
+
 def init_mamba2(gen: torch.Generator, dims: Mamba2Dims, dtype) -> dict:
     h, dev = dims.n_heads, gen.device
     # dt bias ~ softplus^-1 of dt in [1e-3, 1e-1] (mamba init)
@@ -91,6 +96,19 @@ def init_mamba2(gen: torch.Generator, dims: Mamba2Dims, dtype) -> dict:
         "norm_scale": torch.zeros(dims.d_inner, dtype=dtype, device=dev),
         "out_proj": trunc_normal(gen, (dims.d_inner, dims.d_model), dtype,
                                  fan_in=dims.d_inner),
+    }
+
+
+def mamba2_axes() -> dict:
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": ("conv", "mlp"),
+        "conv_b": ("mlp",),
+        "A_log": ("heads",),
+        "D": ("heads",),
+        "dt_bias": ("heads",),
+        "norm_scale": ("mlp",),
+        "out_proj": ("mlp", "embed"),
     }
 
 

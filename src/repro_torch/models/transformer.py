@@ -38,6 +38,7 @@ reference's does.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Any, NamedTuple, Optional
@@ -53,10 +54,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xl
+from repro_torch.sharding.local import data_parallel, like
 
 __all__ = ["GLOBAL_WINDOW", "ForwardOutput", "init_decoder_lm",
-           "embed_inputs", "forward", "init_caches", "decode_step",
-           "lm_loss", "DecoderLM"]
+           "decoder_lm_axes", "embed_inputs", "forward", "init_caches",
+           "decode_step", "lm_loss", "DecoderLM"]
 
 
 class ForwardOutput(NamedTuple):
@@ -75,6 +77,11 @@ def _norm_init(cfg: ModelConfig, dtype, device):
             else L.init_layernorm(cfg.d_model, dtype, device))
 
 
+def _norm_axes(cfg: ModelConfig):
+    return (L.rmsnorm_axes() if cfg.norm == "rmsnorm"
+            else L.layernorm_axes())
+
+
 def _apply_norm(cfg: ModelConfig, p, x):
     return (L.apply_rmsnorm(p, x) if cfg.norm == "rmsnorm"
             else L.apply_layernorm(p, x))
@@ -87,10 +94,17 @@ def _init_mlp(cfg: ModelConfig, gen, dtype):
     return p
 
 
+def _mlp_axes(cfg: ModelConfig):
+    a = L.mlp_axes()
+    if not cfg.mlp_gated:
+        a.pop("w_gate")
+    return a
+
+
 def _apply_mlp(cfg: ModelConfig, p, x):
     if cfg.mlp_gated:
-        return L.apply_mlp(p, x, cfg.act)
-    return L.activation(cfg.act)(x @ p["w_up"]) @ p["w_down"]
+        return like(L.apply_mlp(p, x, cfg.act), x)
+    return like(L.activation(cfg.act)(x @ p["w_up"]) @ p["w_down"], x)
 
 
 def _init_attention(cfg: ModelConfig, gen, dtype, qkv_bias=None) -> dict:
@@ -112,6 +126,19 @@ def _init_dense_layer(cfg: ModelConfig, gen, dtype) -> dict:
     return p
 
 
+def _dense_layer_axes(cfg: ModelConfig) -> dict:
+    a = {
+        "ln1": _norm_axes(cfg),
+        "attn": attn_mod.attention_axes(cfg.qkv_bias),
+        "ln2": _norm_axes(cfg),
+        "mlp": _mlp_axes(cfg),
+    }
+    if cfg.post_norms:
+        a["ln1_post"] = _norm_axes(cfg)
+        a["ln2_post"] = _norm_axes(cfg)
+    return a
+
+
 def _init_moe_layer(cfg: ModelConfig, gen, dtype) -> dict:
     return {
         "ln1": _norm_init(cfg, dtype, gen.device),
@@ -121,6 +148,16 @@ def _init_moe_layer(cfg: ModelConfig, gen, dtype) -> dict:
                                 cfg.moe_d_ff, cfg.top_k, dtype,
                                 cfg.shared_expert_d_ff,
                                 cfg.dense_residual_d_ff),
+    }
+
+
+def _moe_layer_axes(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": _norm_axes(cfg),
+        "attn": attn_mod.attention_axes(cfg.qkv_bias),
+        "ln2": _norm_axes(cfg),
+        "moe": moe_mod.moe_axes(bool(cfg.shared_expert_d_ff),
+                                bool(cfg.dense_residual_d_ff)),
     }
 
 
@@ -203,6 +240,40 @@ def init_decoder_lm(cfg: ModelConfig, gen: torch.Generator,
     return params
 
 
+def _stacked_axes(n: int, axes_one) -> list:
+    """The axes of a layer stack: the port keeps a list of ``n``
+    per-layer dicts where the reference stacks each leaf on a leading
+    "layers" axis (which every rule set replicates), so each layer's
+    leaves carry ``axes_one`` as they are."""
+    return [copy.deepcopy(axes_one) for _ in range(n)]
+
+
+def decoder_lm_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of ``init_decoder_lm``'s tree, leaf for leaf."""
+    axes: dict = {
+        "embed": L.embedding_axes(),
+        "final_norm": _norm_axes(cfg),
+    }
+    if cfg.family in ("dense", "vlm"):
+        axes["layers"] = _stacked_axes(cfg.n_layers, _dense_layer_axes(cfg))
+    elif cfg.family == "moe":
+        axes["layers"] = _stacked_axes(cfg.n_layers - cfg.first_dense_layers,
+                                       _moe_layer_axes(cfg))
+        if cfg.first_dense_layers:
+            axes["dense_layers"] = _stacked_axes(cfg.first_dense_layers,
+                                                 _dense_layer_axes(cfg))
+    elif cfg.family == "hybrid":
+        axes["layers"] = _stacked_axes(
+            cfg.n_layers, {"ln": _norm_axes(cfg), "mamba": m2.mamba2_axes()})
+        axes["shared_attn"] = _dense_layer_axes(cfg)
+    elif cfg.family == "ssm":
+        axes["layers"] = _stacked_axes(
+            cfg.n_layers, {"ln": _norm_axes(cfg),
+                           "mlstm": xl.mlstm_axes(),
+                           "slstm": xl.slstm_axes()})
+    return axes
+
+
 # ============================================================================
 # Per-layer application
 # ============================================================================
@@ -213,7 +284,7 @@ def _apply_dense_layer(cfg: ModelConfig, p: dict, x, start: int, window,
     h, new_cache = attn_mod.apply_attention(
         p["attn"], h, start, window=window, cap=cfg.attn_softcap,
         rope_theta=None if cfg.pos_embed != "rope" else cfg.rope_theta,
-        query_scale=cfg.query_scale, cache=cache)
+        query_scale=cfg.query_scale, cache=cache, chunk_q=cfg.attn_chunk_q)
     if cfg.post_norms:
         h = _apply_norm(cfg, p["ln1_post"], h)
     x = x + h
@@ -228,7 +299,8 @@ def _apply_moe_layer(cfg: ModelConfig, p: dict, x, start: int, cache=None):
     h = _apply_norm(cfg, p["ln1"], x)
     h, new_cache = attn_mod.apply_attention(
         p["attn"], h, start, window=None, cap=cfg.attn_softcap,
-        rope_theta=cfg.rope_theta, query_scale=cfg.query_scale, cache=cache)
+        rope_theta=cfg.rope_theta, query_scale=cfg.query_scale, cache=cache,
+        chunk_q=cfg.attn_chunk_q)
     x = x + h
     h = _apply_norm(cfg, p["ln2"], x)
     out = moe_mod.apply_moe(p["moe"], h, cfg.top_k, impl=cfg.moe_impl,
@@ -237,8 +309,9 @@ def _apply_moe_layer(cfg: ModelConfig, p: dict, x, start: int, cache=None):
 
 
 def _apply_mamba_layer(cfg: ModelConfig, p: dict, x, cache=None):
-    h, new_cache = m2.apply_mamba2(p["mamba"], _mamba_dims(cfg),
-                                   _apply_norm(cfg, p["ln"], x), cache=cache)
+    h, new_cache = data_parallel(
+        lambda pm, h, c: m2.apply_mamba2(pm, _mamba_dims(cfg), h, cache=c),
+        p["mamba"], _apply_norm(cfg, p["ln"], x), cache)
     return x + h, new_cache
 
 
@@ -246,12 +319,10 @@ def _apply_xlstm_layer(cfg: ModelConfig, p: dict, x, slstm: bool,
                        cache=None):
     """The layer's own block only (see the module docstring)."""
     h = _apply_norm(cfg, p["ln"], x)
-    if slstm:
-        h, new_cache = xl.apply_slstm(p["slstm"], _xlstm_dims(cfg), h,
-                                      cache=cache)
-    else:
-        h, new_cache = xl.apply_mlstm(p["mlstm"], _xlstm_dims(cfg), h,
-                                      cache=cache)
+    block = xl.apply_slstm if slstm else xl.apply_mlstm
+    h, new_cache = data_parallel(
+        lambda pb, h, c: block(pb, _xlstm_dims(cfg), h, cache=c),
+        p["slstm" if slstm else "mlstm"], h, cache)
     return x + h.to(x.dtype), new_cache
 
 

@@ -28,8 +28,8 @@ import torch.nn.functional as F
 from repro_torch.models.layers import trunc_normal
 
 __all__ = ["LOG_EPS", "XLSTMDims", "MLSTMCache", "init_mlstm_cache",
-           "init_mlstm", "apply_mlstm", "SLSTMCache", "init_slstm_cache",
-           "init_slstm", "apply_slstm"]
+           "init_mlstm", "mlstm_axes", "apply_mlstm", "SLSTMCache",
+           "init_slstm_cache", "init_slstm", "slstm_axes", "apply_slstm"]
 
 LOG_EPS = -30.0
 
@@ -106,6 +106,14 @@ def init_mlstm(gen: torch.Generator, dims: XLSTMDims, dtype) -> dict:
         "norm_scale": torch.zeros(di, dtype=dtype, device=dev),
         "w_down": trunc_normal(gen, (di, d), dtype, fan_in=di),
     }
+
+
+def mlstm_axes() -> dict:
+    return {"w_up": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "wq": ("mlp", "mlp2"),
+            "wk": ("mlp", "mlp2"), "wv": ("mlp", "mlp2"),
+            "w_if": ("mlp", "heads"), "b_if": ("heads",),
+            "norm_scale": ("mlp",), "w_down": ("mlp", "embed")}
 
 
 def _headwise_rmsnorm(x: torch.Tensor, scale: torch.Tensor, n_heads: int,
@@ -290,6 +298,14 @@ def init_slstm(gen: torch.Generator, dims: XLSTMDims, dtype) -> dict:
         "ff_down": trunc_normal(gen, (dims.d_ff_s, d), f32,
                                 fan_in=dims.d_ff_s),
     }
+
+
+def slstm_axes() -> dict:
+    return {"w_gates": ("embed", "mlp"), "r_gates": ("heads", "head_dim",
+                                                     "state"),
+            "b_gates": ("mlp",), "norm_scale": ("embed",),
+            "ff_gate": ("embed", "mlp"), "ff_up": ("embed", "mlp"),
+            "ff_down": ("mlp", "embed")}
 
 
 def _slstm_cell(p: dict, dims: XLSTMDims, x_t: torch.Tensor,

@@ -33,6 +33,14 @@ In place. ``update`` writes the new values into the given parameter and
 state tensors and returns those same trees (the reference returns new
 ones; at gemma2-2b a second AdamW state would be 21 GB). The gradients
 are read only.
+
+DTensors (``launch.steps.build``). A gradient is first placed like its
+parameter. AdamW and SGD, elementwise, then update each rank's local
+shards as above; the state shards line up with the parameter's (its
+leading layer axis is never sharded). Adafactor's factors and clip
+reduce across a matrix, so on DTensors it updates each whole stacked
+leaf in DTensor ops, which reduce across the shards (the reference's
+formulas; only the order of its sums differs from the pieces').
 """
 
 from __future__ import annotations
@@ -99,9 +107,9 @@ def _write(leaf, value: torch.Tensor) -> None:
     """Store a stacked float32 value into the leaf, in each leaf's dtype."""
     if isinstance(leaf, list):
         for i, t in enumerate(leaf):
-            t.copy_(value[i])
+            _assign(t, value[i])
     else:
-        leaf.copy_(value)
+        _assign(leaf, value)
 
 
 def _pieces(p, g, *state):
@@ -118,6 +126,40 @@ def _pieces(p, g, *state):
         n = flat[0].numel()
         for a in range(0, n, CHUNK):
             yield tuple(f[a:a + CHUNK] for f in flat)
+
+
+def _is_dtensor(leaf) -> bool:
+    from repro_torch.sharding.local import is_dtensor
+    return is_dtensor(leaf[0] if isinstance(leaf, list) else leaf)
+
+
+def _placed(g, p):
+    """The gradient ``g`` placed like the DTensor parameter ``p``."""
+    if isinstance(p, list):
+        return [_placed(a, b) for a, b in zip(g, p)]
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _local(leaf):
+    """Each rank's shard of a DTensor leaf (a list stays a list)."""
+    if isinstance(leaf, list):
+        return [_local(t) for t in leaf]
+    return leaf._local_tensor
+
+
+def _local_leaves(p, g, *state):
+    """``(p, g, *state)`` as local shards where ``p`` is a DTensor, the
+    gradient placed like the parameter first; as given otherwise."""
+    if not _is_dtensor(p):
+        return (p, g, *state)
+    return (_local(p), _local(_placed(g, p)), *(_local(s) for s in state))
+
+
+def _assign(dst, value) -> None:
+    """``dst.copy_(value)``, a DTensor ``value`` placed like ``dst``."""
+    if _is_dtensor(dst):
+        value = value.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(value)
 
 
 def _leaf_matrices(leaf) -> bool:
@@ -168,7 +210,7 @@ def sgd(lr_fn, momentum: float = 0.9) -> Optimizer:
         lr = float(lr_fn(step))
 
         def upd(p, g, mu):
-            for pc, gc, mc in _pieces(p, g, mu):
+            for pc, gc, mc in _pieces(*_local_leaves(p, g, mu)):
                 mc.mul_(momentum).add_(gc.float())
                 pc.copy_(pc.float() - lr * mc)
 
@@ -193,7 +235,7 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc2 = float(1.0 - b2 ** t)
 
         def upd(p, g, m, v):
-            for pc, gc, mc, vc in _pieces(p, g, m, v):
+            for pc, gc, mc, vc in _pieces(*_local_leaves(p, g, m, v)):
                 gc = gc.float()
                 mc.mul_(b1).add_((1 - b1) * gc)
                 vc.mul_(b2).add_((1 - b2) * gc * gc)
@@ -265,7 +307,27 @@ def adafactor(lr_fn, eps: float = 1e-30, clip_threshold: float = 1.0,
             if not _leaf_matrices(p):
                 _write(p, pieces[0][0])
 
+        def upd_whole(p, g, s):
+            """A leaf of DTensors: the update of the whole stacked leaf."""
+            g32 = _stack(_placed(g, p)).float()
+            if _factored(_shape(p)):
+                g2 = g32 * g32 + eps
+                vr = beta2 * s["vr"] + one_minus * g2.mean(-1)
+                vc = beta2 * s["vc"] + one_minus * g2.mean(-2)
+                _assign(s["vr"], vr)
+                _assign(s["vc"], vc)
+                u = factored_u(g32, s["vr"], s["vc"])
+            else:
+                v = beta2 * s["v"] + one_minus * (g32 * g32 + eps)
+                _assign(s["v"], v)
+                u = g32 * torch.rsqrt(s["v"] + eps)
+            u = u / clip_scale(torch.sum(u * u), u.numel())
+            p32 = _stack(p).float()
+            _write(p, p32 - lr * (u + weight_decay * p32))
+
         def upd(p, g, s):
+            if _is_dtensor(p):
+                return upd_whole(p, g, s)
             if _factored(_shape(p)):
                 return upd_factored(p, g, s)
             g = _stack(g).float()

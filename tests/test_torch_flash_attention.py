@@ -11,7 +11,9 @@ test's own tolerances. The CUDA kernel itself is held by
 Here too: the wrapper's choice of kernel variant over every shape
 ``chip_smoke.py`` holds and the rule's edges, the decode variant's key
 splits, and that a tensor off the CPU reaches the kernel's loader for
-every variant and never the plain version.
+every variant and never the plain version; and that the plain forward
+and the backward, each one custom op, have fake implementations that
+give the real outputs' shapes, dtypes and strides.
 """
 
 import pytest
@@ -232,3 +234,23 @@ def test_no_path_from_a_device_tensor_to_the_plain_version(monkeypatch,
     with pytest.raises(Loaded, match="flash_attention"):
         ops.flash_attention(q, k, k, softcap=50.0, q_offset=q_offset)
     assert (dict(ops.launches_by_variant), ops.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv", [1, 2, 4])
+def test_custom_ops_fake_implementations_match_the_real(dtype, hkv):
+    """The plain forward and the backward are custom ops whose fake
+    implementations (the dry run's) give the real outputs' shapes,
+    dtypes and strides, and whose schemas hold (``opcheck``)."""
+    g = torch.Generator().manual_seed(hkv)
+    q = torch.randn((2, 24, 4, 32), generator=g).to(dtype)
+    k, v = (torch.randn((2, 40, hkv, 32), generator=g).to(dtype)
+            for _ in range(2))
+    checks = ("test_schema", "test_faketensor")
+    for op, args in (
+            (torch.ops.repro_torch.flash_attention_plain.default,
+             (q, k, v, True, None, 30.0, 0.17, 0)),
+            (torch.ops.repro_torch.flash_attention_bwd.default,
+             (q, k, v, q, True, 16, None, 0.17, 3))):
+        assert torch.library.opcheck(op, args, test_utils=checks) == {
+            c: "SUCCESS" for c in checks}
